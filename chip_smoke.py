@@ -9,10 +9,13 @@ device fold on kernel K2, the staged EM — and checks it phase by phase:
 
   card    nvidia-smi's name and power limit
   build   nvcc builds the kernels from hgtpu_torch/csrc (and make builds
-          the native verifier); build time and ptxas report
-  K1      placement scores, kernel vs plain torch on the card, N = 8192
-          reads of m = 128 against the 3,600-allele panel's backbone;
-          exact.  place_scan_batch buffers on the card vs the CPU; exact
+          the native verifier); build time and ptxas report (registers,
+          spill bytes, wgmma serialisation warnings)
+  K1      placement scores (wgmma), kernel vs plain torch on the card,
+          N = 8192 reads of m = 128 against the 3,600-allele panel's
+          backbone; exact; time, TFLOP/s and output GB/s beside the plain
+          version's time.  Exact at m = 1024 too (N = 17, P = 500).
+          place_scan_batch buffers on the card vs the CPU; exact
   K2      and_reduce, kernel vs plain at the H x K the fold builds on the
           scale run (A = 3,600); bitwise
   toy     60-allele gene, 4 truth alleles: top call is a truth allele and
@@ -100,6 +103,7 @@ def check_probs(res, what):
 
 
 def main():
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -136,7 +140,8 @@ def main():
     log("build: kernels %s in %.1f s" % (os.path.basename(lib_path), build_s))
     with open(lib_path + ".log") as f:
         for line in f:
-            if "registers" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "Compiling entry",
+                                       "spill", "wgmma")):
                 log("  ptxas: " + line.strip())
 
     from hgtpu_torch.align import GeneAligner
@@ -186,9 +191,23 @@ def main():
                              "the card and the CPU")
     k1_ms = cuda_ms(lambda: placement_scores(ext_d, reads_d))
     k1_plain_ms = cuda_ms(lambda: placement_scores_plain(ext_d, reads_d))
+    n1, P1 = got.shape
     log("K1: placement_scores N=%d m=%d P1=%d exact (max abs err %g); "
-        "kernel %.4f ms, plain %.4f ms; place_scan_batch buffers exact"
-        % (reads.shape[0], m, got.shape[1], err1, k1_ms, k1_plain_ms))
+        "kernel %.4f ms (%.1f TFLOP/s, output %.0f GB/s), plain %.4f ms; "
+        "place_scan_batch buffers exact"
+        % (n1, m, P1, err1, k1_ms, 2 * n1 * 5 * m * P1 / k1_ms / 1e9,
+           n1 * P1 * 4 / k1_ms / 1e6, k1_plain_ms))
+    # long reads: the kernel rebuilds its Hankel tiles per 512 positions
+    rng = np.random.default_rng(9)
+    pwm_l = np.zeros((500 + 2 * 1024, 5), np.float32)
+    pwm_l[1024 + np.arange(500), rng.integers(0, 4, 500)] = 1.0
+    pwm_l = torch.from_numpy(pwm_l).to(dev)
+    reads_l = torch.from_numpy(
+        rng.integers(0, 6, (17, 1024)).astype(np.int8)).to(dev)
+    if not torch.equal(placement_scores(pwm_l, reads_l),
+                       placement_scores_plain(pwm_l, reads_l)):
+        raise AssertionError("K1 kernel != plain at N=17 m=1024 P=500")
+    log("K1: exact at N=17 m=1024 P=500")
     kernels["placement_scores"] = dict(
         name="placement_scores", route="cuda",
         source="hgtpu_torch/csrc/placement_scores.cu",

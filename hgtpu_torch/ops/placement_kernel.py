@@ -3,26 +3,34 @@
 Replaces hgtpu/ops/placement_pallas.py:placement_scores_pallas (through
 its wrapper correlate_scores_pallas), which computed the scores as a
 tiled bf16 matmul of one-hot reads [N, m*5] by backbone windows
-[m*5, P1] on the MXU.  Here the product is written as the gather it is:
+[m*5, P1] on the MXU:
 
     score[n, p] = sum_{j < m} pwm_ext[p + j, reads[n, j]]
 
-Source: ``hgtpu_torch/csrc/placement_scores.cu``.  On the card the
-kernel is bound by shared-memory traffic (N * P1 * m selects), not by
-device memory; see the source for the tiling.  No cuBLAS, no
-``torch.matmul``.  Entries of the PWM are rounded through bf16 as the
-Pallas operands were, and codes outside [0, 5) score 0 as an all-zero
-one-hot row did, so the kernel and ``placement_scores_plain`` agree
-exactly with hgtpu's ``correlate_scores`` for 0/1 PWMs.
+Source: ``hgtpu_torch/csrc/placement_scores.cu``.  The kernel keeps the
+MXU's arithmetic on Hopper's tensor cores (wgmma, bf16 operands, float32
+sums): the one-hot operand is built in registers from the codes, and the
+window operand is one small Hankel tile of the PWM per base in shared
+memory.  No cuBLAS, no ``torch.matmul``.  Entries of the PWM are rounded
+through bf16 as the Pallas operands were, and codes outside [0, 5) score
+0 as an all-zero one-hot row did, so the kernel and
+``placement_scores_plain`` agree exactly with hgtpu's ``correlate_scores``
+for 0/1 PWMs.
 
 ``placement_scores`` takes the plain version only for CPU tensors; for
-CUDA tensors it launches the kernel or raises.
+CUDA tensors it launches the kernel or raises.  The kernel reads the
+codes in 16-byte copies along rows of 16-code chunks: a read width m
+that is not a multiple of 16 is padded with code 5 (scores 0) and the PWM
+with as many zero rows, and codes whose base address is not 16-byte
+aligned are copied first (``k16_operands``).
 """
 from __future__ import annotations
 
 import torch
 
 from . import cuda_lib
+
+_PAD_CODE = 5      # outside [0, 5): scores 0 against any PWM column
 
 
 def _check(pwm_ext, reads):
@@ -53,6 +61,21 @@ def placement_scores_plain(pwm_ext: torch.Tensor,
     return onehot.reshape(n, m * 5) @ windows.T
 
 
+def k16_operands(pwm_ext: torch.Tensor, reads: torch.Tensor):
+    """(pwm_ext, reads) as the kernel takes them, with the same scores:
+    m padded to a multiple of 16 with code-5 columns and as many zero
+    PWM rows (P1 = rows - m + 1 is unchanged), and the codes copied when
+    their base is not 16-byte aligned."""
+    n, m = reads.shape
+    pad = -m % 16
+    if pad:
+        reads = torch.cat([reads, reads.new_full((n, pad), _PAD_CODE)], 1)
+        pwm_ext = torch.cat([pwm_ext, pwm_ext.new_zeros((pad, 5))], 0)
+    elif reads.data_ptr() % 16:
+        reads = reads.clone()
+    return pwm_ext, reads
+
+
 def placement_scores(pwm_ext: torch.Tensor,
                      reads: torch.Tensor) -> torch.Tensor:
     """pwm_ext: [P1 + m - 1, 5] float32; reads: [N, m] int8 codes.
@@ -63,15 +86,16 @@ def placement_scores(pwm_ext: torch.Tensor,
     if reads.device.type != "cuda":
         raise RuntimeError("no placement kernel for device %s"
                            % reads.device)
-    n, m = reads.shape
-    rows = pwm_ext.shape[0]
-    P1 = rows - m + 1
+    n = reads.shape[0]
+    P1 = pwm_ext.shape[0] - reads.shape[1] + 1
+    pwm_ext, reads = k16_operands(pwm_ext, reads)
     lib = cuda_lib.load()
     out = torch.empty((n, P1), dtype=torch.float32, device=reads.device)
     with torch.cuda.device(reads.device):
         err = lib.hgtpu_torch_placement_scores(
-            pwm_ext.data_ptr(), rows, reads.data_ptr(), n, m, out.data_ptr(),
-            P1, torch.cuda.current_stream().cuda_stream)
+            pwm_ext.data_ptr(), pwm_ext.shape[0], reads.data_ptr(), n,
+            reads.shape[1], out.data_ptr(), P1,
+            torch.cuda.current_stream().cuda_stream)
     cuda_lib.check(err, "placement_scores")
     placement_scores.launches += 1
     return out

@@ -36,17 +36,59 @@ def _pwm_reads(seed, n, m, P):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("seed,n,m,P", [(3, 40, 96, 700), (5, 130, 128, 333),
-                                        (7, 8192, 128, 3557),
-                                        (9, 17, 1024, 500)])
+@pytest.mark.parametrize("seed,n,m,P", [
+    # N not a multiple of 128, P1 = P + m + 1 not a multiple of 128
+    # (odd P1 takes the scalar stores); m = 1024 and 1152 rebuild the
+    # Hankel tiles per 512 positions, 1152 with a short last slab
+    (3, 40, 96, 700), (5, 130, 128, 333), (7, 8192, 128, 3557),
+    (9, 17, 1024, 500), (11, 300, 64, 1000), (13, 129, 1152, 300)])
 def test_k1_kernel_equals_plain(cuda, seed, n, m, P):
     pwm, reads = _pwm_reads(seed, n, m, P)
+    reads[1, ::3] = -1                 # negative codes score 0 too
     pwm_d = torch.from_numpy(pwm).to(cuda)
     reads_d = torch.from_numpy(reads).to(cuda)
     before = placement_scores.launches
     got = placement_scores(pwm_d, reads_d)
     torch.cuda.synchronize()
     assert placement_scores.launches == before + 1
+    assert torch.equal(got, placement_scores_plain(pwm_d, reads_d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [64, 128])
+def test_k1_kernel_general_pwm(cuda, m):
+    """A PWM uniform in [0, 1), rounded through bf16: products that are
+    not 0/1.  Tolerance atol=1e-2: float32 sums of up to 5m products,
+    taken in another order than cuBLAS's, and tensor-core accumulation is
+    not IEEE round-to-nearest (entries like 0.25 or 0.5 would still sum
+    exactly and test nothing)."""
+    rng = np.random.default_rng(m)
+    n, P = 200, 900
+    pwm = rng.random((P + 2 * m, 5), dtype=np.float32)
+    pwm = torch.from_numpy(pwm).to(torch.bfloat16).to(torch.float32)
+    reads = rng.integers(0, 6, (n, m)).astype(np.int8)
+    pwm_d, reads_d = pwm.to(cuda), torch.from_numpy(reads).to(cuda)
+    got = placement_scores(pwm_d, reads_d)
+    want = placement_scores_plain(pwm_d, reads_d)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,n,m,P", [(15, 70, 128, 400), (17, 70, 40, 400),
+                                        (19, 9, 8, 50)])
+def test_k1_kernel_unaligned_codes_and_ragged_width(cuda, seed, n, m, P):
+    """Inputs the kernel does not take as they are, which the wrapper
+    hands it as k16_operands: codes whose base is not 16-byte aligned,
+    and read widths that are not a multiple of 16."""
+    pwm, reads = _pwm_reads(seed, n, m, P)
+    pwm_d = torch.from_numpy(pwm).to(cuda)
+    buf = torch.empty(n * m + 1, dtype=torch.int8, device=cuda)
+    reads_d = buf[1:].view(n, m)
+    reads_d.copy_(torch.from_numpy(reads))
+    assert reads_d.data_ptr() % 16 == 1
+    got = placement_scores(pwm_d, reads_d)
+    torch.cuda.synchronize()
     assert torch.equal(got, placement_scores_plain(pwm_d, reads_d))
 
 

@@ -18,7 +18,8 @@ from hgtpu.ops.placement import correlate_scores as jax_correlate_scores
 from hgtpu.ops.placement_pallas import correlate_scores_pallas
 from hgtpu_torch.ops import placement as tp
 from hgtpu_torch.ops.compat_kernel import and_reduce
-from hgtpu_torch.ops.placement_kernel import placement_scores
+from hgtpu_torch.ops.placement_kernel import (k16_operands, placement_scores,
+                                              placement_scores_plain)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -69,6 +70,77 @@ def test_k1_plain_equals_hgtpu(seed, n, m, P, periodic):
     assert got.dtype == torch.float32
     assert np.array_equal(got.numpy(), want)
     assert np.array_equal(got.numpy(), pallas)
+
+
+# the CUDA kernel's tiling (hgtpu_torch/csrc/placement_scores.cu)
+TILE_N, TILE_P, SLAB, K16 = 128, 128, 512, 16
+
+
+def _scores_as_tiled_on_the_card(ext, reads):
+    """K1's scores decomposed the way the CUDA kernel computes them, on
+    the operands the wrapper hands it: K base-major; per TILE_P-diagonal
+    tile and SLAB of read positions one Hankel matrix per base,
+    M_b[r, t] = bf16(pwm[p0 + js + r + t, b]) for t < 16 (zero past the
+    PWM); the B tile of k16 chunk (b, j0) is rows [j0, j0 + TILE_P) of
+    M_b; rows past N read the last row's codes and, like diagonals past
+    P1, are masked at the store."""
+    ext_t, reads_t = k16_operands(torch.from_numpy(ext),
+                                  torch.from_numpy(reads))
+    pwm = ext_t.to(torch.bfloat16).to(torch.float32).numpy()
+    codes_all = reads_t.numpy()
+    n, m = codes_all.shape
+    rows = pwm.shape[0]
+    P1 = rows - m + 1
+    hrows = TILE_P + min(m, SLAB) - 16
+    out = np.full((n, P1), np.nan, np.float32)
+    for n0 in range(0, n, TILE_N):
+        codes = codes_all[np.minimum(np.arange(n0, n0 + TILE_N), n - 1)]
+        for p0 in range(0, P1, TILE_P):
+            acc = np.zeros((TILE_N, TILE_P), np.float32)
+            for js in range(0, m, SLAB):
+                r = p0 + js + np.arange(hrows)[:, None] + np.arange(K16)
+                for b in range(5):
+                    M_b = np.where(r < rows, pwm[np.minimum(r, rows - 1), b],
+                                   np.float32(0))
+                    for j0 in range(0, min(SLAB, m - js), K16):
+                        a = codes[:, js + j0:js + j0 + K16] == b
+                        acc += a.astype(np.float32) @ M_b[j0:j0 + TILE_P].T
+            nv, pv = min(TILE_N, n - n0), min(TILE_P, P1 - p0)
+            out[n0:n0 + nv, p0:p0 + pv] = acc[:nv, :pv]
+    assert not np.isnan(out).any()
+    return out
+
+
+@pytest.mark.parametrize("seed,n,m,P,periodic",
+                         CASES + [(9, 17, 1024, 500, False)])
+def test_k1_card_tiling_equals_hgtpu(seed, n, m, P, periodic):
+    """The kernel's index algebra (b-major K, Hankel B tiles addressed by
+    row offset, slabs, ragged N and P1) against hgtpu, exactly."""
+    ext, reads = _pwm_reads(seed, n, m, P, periodic)
+    reads[0, :7] = 9                     # out-of-range codes score 0
+    want = np.asarray(jax_correlate_scores(jnp.asarray(ext),
+                                           jnp.asarray(reads)))
+    pallas = np.asarray(correlate_scores_pallas(jnp.asarray(ext),
+                                                jnp.asarray(reads)))
+    got = _scores_as_tiled_on_the_card(ext, reads)
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, pallas)
+
+
+@pytest.mark.parametrize("m", [40, 64])
+def test_k16_operands_keep_the_scores(m):
+    """The wrapper's padding of m to a multiple of 16 (code 5, zero PWM
+    rows) and its copy of misaligned codes change no score."""
+    ext, reads = _pwm_reads(m, 21, m, 300)
+    ext_t = torch.from_numpy(ext)
+    buf = torch.empty(reads.size + 1, dtype=torch.int8)
+    reads_t = buf[1:].view(reads.shape)            # base not 16-aligned
+    reads_t.copy_(torch.from_numpy(reads))
+    pwm_k, reads_k = k16_operands(ext_t, reads_t)
+    assert reads_k.shape[1] % 16 == 0 and reads_k.data_ptr() % 16 == 0
+    assert pwm_k.shape[0] - reads_k.shape[1] == ext.shape[0] - m
+    assert torch.equal(placement_scores_plain(pwm_k, reads_k),
+                       placement_scores_plain(ext_t, reads_t))
 
 
 @pytest.mark.parametrize("seed,n,m,P,periodic", CASES)
