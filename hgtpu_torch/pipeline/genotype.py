@@ -1,10 +1,12 @@
 """End-to-end genotyping orchestration (port of
 hgtpu/pipeline/genotype.py: type_reads and simulation_sweep).
 
-Aligns read batches with the torch aligner, groups mates, and runs the
-typing engine with its device fold; for simulations it sweeps random
-allele draws checking that the truth ranks #1 — the reference's built-in
-self-test (`--debug basic,test_size:N,set_seed:S`).
+Routes a read set to the production device program
+(parallel/production.py) or to the host engine (align read batches with
+the torch aligner, group mates, type with the device fold), as hgtpu
+does; for simulations it sweeps random allele draws checking that the
+truth ranks #1 — the reference's built-in self-test
+(`--debug basic,test_size:N,set_seed:S`).
 """
 from __future__ import annotations
 
@@ -22,10 +24,6 @@ from ..typer.engine import TypingOptions, type_gene
 def _check_ported(opts):
     """Options whose paths are not ported yet raise instead of quietly
     running something else."""
-    if opts.device_typing == "on":
-        raise NotImplementedError(
-            "device_typing='on' (the sharded production path) is not "
-            "ported yet (ROADMAP items 5-7)")
     if opts.linear_typing:
         raise NotImplementedError(
             "linear_typing needs ops/fm.py, which is not ported yet "
@@ -35,18 +33,41 @@ def _check_ported(opts):
             "assembly is not ported yet (ROADMAP item 15)")
 
 
+def _take_device_path(opts, paired, device) -> bool:
+    """Route typing through the production device program?  "on" forces
+    it, "auto" takes it on a CUDA device whenever the options are
+    device-compatible (hgtpu's rule, with CUDA in place of a TPU)."""
+    if opts.device_typing == "off":
+        return False
+    from ..parallel.production import device_typing_supported
+
+    if not device_typing_supported(opts, paired):
+        return False
+    if opts.device_typing == "on":
+        return True
+    return device.type == "cuda"
+
+
 def type_reads(gene: GeneRef, reads_1, reads_2=None, opts=None,
                aligner: GeneAligner = None, device=None):
     """reads_*: [(name, seq)].  Returns GeneTypingResult.
 
-    The host-engine path: placement (K1) -> host verify -> haplotypes ->
-    device fold (K2) -> staged numpy EM.  `device` defaults to the
-    aligner's device, else to hgtpu_torch.default_device()."""
+    The production path (parallel.production.type_reads_device: place on
+    K1, spell, count, host rescue with the device fold on K2, staged EM)
+    when _take_device_path says so; otherwise the host-engine path:
+    placement (K1) -> host verify -> haplotypes -> device fold (K2) ->
+    staged numpy EM.  `device` defaults to the aligner's device, else to
+    hgtpu_torch.default_device()."""
     opts = opts or TypingOptions()
     _check_ported(opts)
     if device is None and aligner is not None:
         device = aligner.device
     device = resolve_device(device)
+    if _take_device_path(opts, reads_2 is not None, device):
+        from ..parallel.production import type_reads_device
+
+        return type_reads_device(gene, reads_1, reads_2, opts,
+                                 aligner=aligner, device=device)
     aligner = aligner or GeneAligner(gene, num_editdist=opts.num_editdist,
                                      leftmost=opts.family == "codis",
                                      device=device)
@@ -113,7 +134,7 @@ def simulation_sweep(gene: GeneRef, test_size=5, seed=None, paired=True,
             gene,
             [(r.name, r.seq) for r in r1],
             [(r.name, r.seq) for r in r2] if paired else None,
-            opts, aligner)
+            opts, aligner, device=device)
         ranks = {}
         for i, (allele, prob) in enumerate(res.prob):
             if allele in alleles:

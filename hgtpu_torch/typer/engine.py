@@ -51,9 +51,9 @@ class TypingOptions:
     use_alts: bool = True
     error_correction: bool = True
     device_counting: str = "auto"  # "auto" | "on" | "off"
-    # route typing through the sharded device program with host punt
-    # rescue: not ported yet, so "on" raises and "auto" takes the host
-    # engine, as hgtpu does off a TPU
+    # route typing through the production device program with host punt
+    # rescue (parallel/production.py): "auto" takes it on CUDA, as hgtpu
+    # does on a TPU
     device_typing: str = "auto"    # "auto" | "on" | "off"
     assembly: bool = False
     report_base: str = ""     # when set, assembly also renders <base>.<gene>.pdf

@@ -5,8 +5,10 @@ has none:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 (``--noconftest`` because tests/conftest.py sets jax up.)  Each kernel
-must equal its plain-torch version exactly and count its launch, and a
-small typing run on the card must equal the same run on the CPU.
+must equal its plain-torch version exactly and count its launch, a small
+host-engine typing run on the card must equal the same run on the CPU,
+and the production program's count_classes on the card must equal the
+CPU's.
 """
 import numpy as np
 import pytest
@@ -129,7 +131,9 @@ def test_type_reads_card_equals_cpu(cuda):
                                seed=5)
     reads = ([(r.name, r.seq) for r in r1], [(r.name, r.seq) for r in r2])
     launches = placement_scores.launches, and_reduce.launches
-    on_card = type_reads(gene, *reads, TypingOptions(simulation=True),
+    # the host-engine path ("auto" on CUDA is the production path)
+    on_card = type_reads(gene, *reads,
+                         TypingOptions(simulation=True, device_typing="off"),
                          device=cuda)
     assert placement_scores.launches > launches[0]
     assert and_reduce.launches > launches[1]
@@ -142,3 +146,66 @@ def test_type_reads_card_equals_cpu(cuda):
         if isinstance(a, dict):
             a, b = list(a.items()), list(b.items())
         assert a == b, f
+
+
+@pytest.mark.cuda
+def test_count_classes_card_equals_cpu(cuda):
+    """The production program on the card (K1 in the place pass) returns
+    the CPU's count_classes dict, at 5 % per-base error on the indel
+    gene, fused and tiered."""
+    import os
+
+    from hgtpu.db import build_gene_ref
+    from hgtpu.sim import simulate_reads
+    from hgtpu_torch.parallel.e2e import ShardedTyper
+    from synth import make_gene_msa
+
+    spec = make_gene_msa(seed=3, n_alleles=40)
+    gene, _ = build_gene_ref("A", spec["names"], spec["rows"],
+                             spec["ref_allele"], min_var_freq=8.0)
+    r1, r2, _ = simulate_reads(gene, gene.allele_names[:2],
+                               simulate_interval=2, read_len=100,
+                               frag_len=250, seed=11, perbase_errorrate=5.0)
+    outs = {}
+    for spell in ("auto", "off"):
+        os.environ["HGTPU_FUSED_SPELL"] = spell
+        try:
+            for dev in (cuda, torch.device("cpu")):
+                st = ShardedTyper(gene, dev, class_cap=64)
+                before = placement_scores.launches
+                outs[spell, dev.type] = st.count_classes(
+                    st.encode([r.seq for r in r1]),
+                    st.encode([r.seq for r in r2]))
+                if dev.type == "cuda":
+                    assert placement_scores.launches > before
+        finally:
+            del os.environ["HGTPU_FUSED_SPELL"]
+    for spell in ("auto", "off"):
+        got, want = outs[spell, "cuda"], outs[spell, "cpu"]
+        for k in ("pileup", "punt", "excl", "n_reads", "n_pairs"):
+            assert np.array_equal(got[k], want[k]), (spell, k)
+        for name, parts in want["levels"].items():
+            for g, w in zip(got["levels"][name], parts):
+                assert np.array_equal(g, w), (spell, name)
+            assert np.array_equal(got["order"][name], want["order"][name])
+        for gw, ww in zip(got["winner"], want["winner"]):
+            for k in ww:
+                assert np.array_equal(gw[k], ww[k]), (spell, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [257, 301, 4097])
+def test_count_product_card_exact_above_bf16(cuda, n):
+    """compat_mxu's product on the card: bf16 operands, float32 output,
+    exact past bf16's 256 and equal to the CPU's."""
+    from hgtpu_torch.parallel.e2e import count_product
+
+    x = torch.zeros((3, 4999), dtype=torch.bfloat16)
+    x[0, :n] = 1
+    x[1, 1:n + 1:2] = 1
+    links = torch.ones((4999, 3600), dtype=torch.bfloat16)
+    links[::3, 1::2] = 0
+    got = count_product(x.to(cuda), links.to(cuda))
+    assert got.dtype == torch.float32
+    assert torch.equal(got.cpu(), count_product(x, links))
+    assert float(got[0, 0]) == n

@@ -1,6 +1,7 @@
 """hgtpu_torch runs where jax cannot be imported: a subprocess with jax
-blocked imports every module of the port and types a tiny gene, and no
-source file of the port imports jax."""
+blocked imports every module of the port and types a tiny gene on the
+host-engine path and on the production path, and no source file of the
+port imports jax."""
 import ast
 import os
 import subprocess
@@ -27,11 +28,11 @@ gene, _ = build_gene_ref("A", spec["names"], spec["rows"],
                          spec["ref_allele"], min_var_freq=0.0)
 truth = gene.allele_names[7]
 r1, r2, _ = simulate_reads(gene, [truth], simulate_interval=8, seed=2)
-for dc in ("off", "on"):
+for kw in (dict(device_counting="off"), dict(device_counting="on"),
+           dict(device_typing="on")):
     res = type_reads(gene, [(r.name, r.seq) for r in r1],
                      [(r.name, r.seq) for r in r2],
-                     TypingOptions(simulation=True, device_counting=dc),
-                     device="cpu")
+                     TypingOptions(simulation=True, **kw), device="cpu")
     assert res.prob[0][0] == truth, res.prob[:3]
 assert sys.modules["jax"] is None
 print("TYPED", truth)

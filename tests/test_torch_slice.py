@@ -94,7 +94,6 @@ def test_shared_state_does_not_collide(generef, read_sets):
 
 
 @pytest.mark.parametrize("opts,match", [
-    (dict(device_typing="on"), "ROADMAP items 5-7"),
     (dict(linear_typing=True), "ops/fm.py"),
     (dict(assembly=True), "assembly"),
 ])
