@@ -17,20 +17,28 @@ hgtpu_torch.pipeline.type_reads and checks them phase by phase:
 Phases:
 
   card       nvidia-smi's name and power limit
-  build      nvcc builds the kernels from hgtpu_torch/csrc (and make
-             builds the native verifier); build time and ptxas report
+  build      nvcc builds the kernels from hgtpu_torch/csrc, one process
+             per source, all at once (and make builds the native verifier
+             beside them); build time and ptxas report
   K1         placement scores (wgmma), kernel vs plain torch on the card:
              the host path's shape (N = 8192, m = 128) and the place
              pass's (N = 7,168 reads of m = 100 against the scale panel's
              pwm_ext, P + 100 rows); exact; times beside the plain
-             version's.  Exact at m = 1024 too; place_scan_batch buffers
-             on the card vs the CPU
+             version's and one torch.mm's (bf16 one-hot reads by PWM
+             windows, float32 out: a yardstick the port never calls).
+             Exact at m = 1024 too; place_scan_batch buffers on the card
+             vs the CPU
   warm-up    one run of each path and gene on the card, recording every
              K1 and K2 call (the place pass, the fused spell, the
              rescue's realignment, both folds) and compat_mxu's products
   K1, K2     every distinct operand shape recorded in the warm-ups,
              kernel vs plain on the recorded operands, exact (K1) and
-             bitwise (K2); K2 timed at the largest H x K
+             bitwise (K2: both variants, the slab kernel at k2_plan's
+             width and the wide L2 kernel); the wide kernel bitwise on a
+             V+1 = 14,000 table, past the slab limit, through and_reduce;
+             K2 timed at the largest H x K and at the production rescue's
+             fold, in turns (plain, slab, wide, slab, wide, plain), and
+             the slab kernel with K = 0 (staging, tile walk and stores)
   compat     compat_mxu's product at prod-scale's shape (bf16 operands,
              float32 output) equals the float64 product: exact counts
   toy/scale  host-engine path: 60-allele gene (4 truths) and the
@@ -46,17 +54,21 @@ Phases:
   proof      launch counts of each path's runs (counts set to 0 just
              before the path, read just after): K1 > 0 on both paths, K2
              > 0 on the host path and on prod-scale whenever its rescue
-             reached the fold; jax never imported
+             reached the fold; neither jax nor hgtpu (the JAX package)
+             ever imported
 
 Every failure raises: nothing is caught and carried on, and there is no
 CPU fallback.  Exits non-zero without a CUDA device or without the repo
 beside it.  The last three lines of standard output are the kernels'
 JSON record, the card's name and power limit, and the device JSON.
-Each kernel's record holds ms / plain_ms at the shape in `shape` (K1 at
-the host path's N = 8192, m = 128, as since it was first timed; K2 at
-the largest H x K), K1's place-pass time as place_ms / place_plain_ms
-(`place_shape`), and max_abs_err over every shape checked
-(`shapes_checked` distinct shapes from the paths).
+The JSON holds one record per kernel and timed shape (`shape`): ms,
+plain_ms and library_ms (null where no torch call computes the function)
+are device times of one call (CUDA-graph replay: the host's cost of a
+wrapped call, tens of microseconds, would swamp a small kernel),
+bound_ms / bound_by the least time the card could take for the same
+work, launches the main path's count, max_abs_err over every shape
+checked.  "kernels" lists the kernels of the path; "off_path" the wide
+K2 variant, which no table of the path takes.
 """
 import json
 import os
@@ -75,24 +87,71 @@ def log(*a):
 
 
 def cuda_ms(fn, iters=20, warmup=3):
+    """Device time of one call of fn: `iters` calls captured in one CUDA
+    graph and replayed between two CUDA events, so the host's cost of a
+    call (tens of microseconds through a Python wrapper, more than a small
+    kernel takes) stays out of the time; warm-up calls first, on a side
+    stream as capture wants."""
     import torch
 
-    for _ in range(warmup):
-        fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
-    for _ in range(iters):
-        fn()
+    graph.replay()
     t1.record()
     torch.cuda.synchronize()
+    del graph
     return t0.elapsed_time(t1) / iters
+
+
+# the card's datasheet peaks (H100 SXM, 700 W): HBM bytes/s, dense bf16
+# tensor-core and float32 CUDA-core rates
+PEAK_BYTES_S = 3.35e12
+PEAK_BF16_S = 989e12
+PEAK_F32_S = 67e12
+
+
+def bound_ms(nbytes, ops, peak):
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over their peak; and which one."""
+    t_b, t_o = nbytes / PEAK_BYTES_S * 1e3, ops / peak * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def k1_library(pwm_ext, reads):
+    """One torch.mm that computes K1's scores, as a yardstick only: one-hot
+    reads [N, 5m] by PWM windows [5m, P1], bf16 in, float32 out, on the
+    operands the kernel takes (k16_operands), built here, outside the
+    timing."""
+    import torch
+    from hgtpu_torch.ops.placement_kernel import k16_operands
+
+    pwm_k, reads_k = k16_operands(pwm_ext, reads)
+    n, m = reads_k.shape
+    P1 = pwm_k.shape[0] - m + 1
+    classes = torch.arange(5, device=reads.device)
+    onehot = (reads_k.long()[:, :, None] == classes).to(torch.bfloat16) \
+        .reshape(n, 5 * m)
+    windows = pwm_k.to(torch.bfloat16).unfold(0, m, 1).transpose(1, 2) \
+        .reshape(P1, 5 * m)
+    return lambda: torch.mm(onehot, windows.T, out_dtype=torch.float32)
 
 
 def build_gene(n_alleles, length, scale):
     from synth import make_gene_msa, make_hla_scale_msa
-    from hgtpu.db import build_gene_ref
+    from hgtpu_torch.db import build_gene_ref
 
     spec = make_hla_scale_msa(n_alleles=n_alleles, length=length) if scale \
         else make_gene_msa(seed=11, n_alleles=n_alleles, length=length)
@@ -104,7 +163,7 @@ def build_gene(n_alleles, length, scale):
 
 
 def reads_of(gene, truths, seed):
-    from hgtpu.sim import simulate_reads
+    from hgtpu_torch.sim import simulate_reads
 
     r1, r2, _ = simulate_reads(gene, truths, simulate_interval=1, seed=seed)
     return [(r.name, r.seq) for r in r1], [(r.name, r.seq) for r in r2]
@@ -193,27 +252,31 @@ def main():
     log("torch %s, cuda %s, python %s" % (
         torch.__version__, torch.version.cuda, sys.version.split()[0]))
 
-    # ---- 2. build ---- #
-    make = subprocess.run(["make", "-C", os.path.join(ROOT, "native")],
-                          capture_output=True, text=True)
-    log("build: native verifier make rc=%d" % make.returncode)
+    # ---- 2. build: the native verifier and the kernels side by side ---- #
+    make = subprocess.Popen(["make", "-C", os.path.join(ROOT, "native")],
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.DEVNULL)
     from hgtpu_torch.ops import cuda_lib
 
     t0 = time.perf_counter()
     lib_path = cuda_lib.build()
     build_s = time.perf_counter() - t0
     cuda_lib.load()
-    log("build: kernels %s in %.1f s" % (os.path.basename(lib_path), build_s))
+    log("build: native verifier make rc=%d" % make.wait())
+    log("build: kernels %s in %.1f s (one nvcc per source, in parallel)"
+        % (os.path.basename(lib_path), build_s))
     with open(lib_path + ".log") as f:
         for line in f:
             if any(w in line for w in ("registers", "Compiling entry",
                                        "spill", "wgmma")):
                 log("  ptxas: " + line.strip())
 
-    from hgtpu.utils.trace import TRACE
+    from hgtpu_torch.utils.trace import TRACE
     from hgtpu_torch.align import GeneAligner
     from hgtpu_torch.ops import placement as tplace
-    from hgtpu_torch.ops.compat_kernel import and_reduce, and_reduce_plain
+    from hgtpu_torch.ops.compat_kernel import (and_reduce, and_reduce_plain,
+                                               and_reduce_slab,
+                                               and_reduce_wide, k2_plan)
     from hgtpu_torch.ops.placement_kernel import (placement_scores,
                                                   placement_scores_plain)
     from hgtpu_torch.parallel import e2e, production
@@ -235,7 +298,8 @@ def main():
            time.perf_counter() - t0))
     big_gpu = GeneAligner(big, device=dev)
     big_cpu = GeneAligner(big, device="cpu")
-    kernels = {}
+    kernels = []        # one record per kernel and timed shape
+    off_path = []       # K2's wide variant: no table of the path takes it
 
     # ---- 3. K1 ---- #
     m = big_gpu.pad_len
@@ -263,13 +327,17 @@ def main():
                              "the card and the CPU")
     k1_ms = cuda_ms(lambda: placement_scores(ext_d, reads_d))
     k1_plain_ms = cuda_ms(lambda: placement_scores_plain(ext_d, reads_d))
+    lib = k1_library(ext_d, reads_d)
+    lib_err1 = float((lib() - got).abs().max())
+    k1_lib_ms = cuda_ms(lib)
     n1, P1 = got.shape
     log("K1: placement_scores N=%d m=%d P1=%d exact (max abs err %g); "
-        "kernel %.4f ms (%.1f TFLOP/s, output %.0f GB/s), plain %.4f ms; "
+        "kernel %.4f ms (%.1f TFLOP/s, output %.0f GB/s), plain %.4f ms, "
+        "library torch.mm %.4f ms (max abs err vs kernel %g); "
         "place_scan_batch buffers exact"
         % (n1, m, P1, err1, k1_ms, 2 * n1 * 5 * m * P1 / k1_ms / 1e9,
-           n1 * P1 * 4 / k1_ms / 1e6, k1_plain_ms))
-    del got, want
+           n1 * P1 * 4 / k1_ms / 1e6, k1_plain_ms, k1_lib_ms, lib_err1))
+    del got, want, lib
     # the production place pass's shape: the scale typer's pwm_ext (the
     # PWM plus read_len zero rows), one mate batch as count_classes pads
     # it (6,511 pairs -> 7,168 rows), m = 100 (the wrapper pads to 112)
@@ -286,12 +354,17 @@ def main():
                              "max abs err %g" % err_p)
     kp_ms = cuda_ms(lambda: placement_scores(pwm_p, reads_p))
     kp_plain_ms = cuda_ms(lambda: placement_scores_plain(pwm_p, reads_p))
+    lib = k1_library(pwm_p, reads_p)
+    lib_errp = float((lib() - got).abs().max())
+    kp_lib_ms = cuda_ms(lib)
     np_, P1p = got.shape
     log("K1: place pass shape N=%d m=%d P1=%d exact (max abs err %g); "
-        "kernel %.4f ms (%.1f TFLOP/s), plain %.4f ms"
+        "kernel %.4f ms (%.1f TFLOP/s), plain %.4f ms, library torch.mm "
+        "%.4f ms (max abs err vs kernel %g)"
         % (np_, reads_p.shape[1], P1p, err_p, kp_ms,
-           2 * np_ * 5 * 112 * P1p / kp_ms / 1e9, kp_plain_ms))
-    del got, want
+           2 * np_ * 5 * 112 * P1p / kp_ms / 1e9, kp_plain_ms, kp_lib_ms,
+           lib_errp))
+    del got, want, lib
     # long reads: the kernel rebuilds its Hankel tiles per 512 positions
     rng = np.random.default_rng(9)
     pwm_l = np.zeros((500 + 2 * 1024, 5), np.float32)
@@ -317,9 +390,12 @@ def main():
     run_name = [None]
 
     def recorder(name, real):
+        # K2's table is kept as the path holds it (a row-padded view, the
+        # DeviceCounter's own, never written); the rest is copied
         def spy(a, b):
             key = (name,) + tuple(b.shape) + tuple(a.shape)
-            seen[name].setdefault(key, (a.clone(), b.clone(), set()))[2] \
+            seen[name].setdefault(key, (a if name == "and_reduce"
+                                        else a.clone(), b.clone(), set()))[2] \
                 .add(run_name[0])
             return real(a, b)
         return spy
@@ -380,40 +456,126 @@ def main():
         log("K1: N=%d m=%d pwm_ext rows=%d (runs %s) exact"
             % (key[1], key[2], key[3], ",".join(sorted(runs))))
     del got, want
-    kernels["placement_scores"] = dict(
-        name="placement_scores", route="cuda",
-        source="hgtpu_torch/csrc/placement_scores.cu",
-        replaces="hgtpu/ops/placement_pallas.py:48",
-        max_abs_err=max(err1, err_p, err_seen), ms=k1_ms,
-        plain_ms=k1_plain_ms, shape="N=%d m=%d P1=%d" % (n1, m, P1),
-        place_ms=kp_ms, place_plain_ms=kp_plain_ms,
-        place_shape="N=%d m=%d P1=%d" % (np_, reads_p.shape[1], P1p),
-        shapes_checked=len(seen["placement_scores"]))
+    # one record per timed shape: the host path's and the place pass's
+    for (n_, m_, P1_, rows_), ms_, plain_, lib_ms_, lib_err_, where in (
+            ((n1, m, P1, ext_d.shape[0]), k1_ms, k1_plain_ms, k1_lib_ms,
+             lib_err1, "host path"),
+            ((np_, reads_p.shape[1], P1p, pwm_p.shape[0]), kp_ms,
+             kp_plain_ms, kp_lib_ms, lib_errp, "place pass")):
+        b_ms, b_by = bound_ms(n_ * m_ + rows_ * 5 * 4 + n_ * P1_ * 4,
+                              2 * n_ * 5 * m_ * P1_, PEAK_BF16_S)
+        kernels.append(dict(
+            name="placement_scores", route="cuda",
+            source="hgtpu_torch/csrc/placement_scores.cu",
+            replaces="hgtpu/ops/placement_pallas.py:48",
+            max_abs_err=max(err1, err_p, err_seen), ms=ms_,
+            plain_ms=plain_, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms_,
+            library="torch.mm(onehot bf16 [N, 5m], windows bf16 [5m, P1], "
+                    "out_dtype=float32); max abs err vs the kernel %g"
+                    % lib_err_,
+            shape="N=%d m=%d P1=%d (%s)" % (n_, m_, P1_, where),
+            shapes_checked=len(seen["placement_scores"])))
 
-    # ---- 4. K2: every (H, K) the folds gave it, bitwise ---- #
+    # ---- 4. K2: every (H, K) the folds gave it, both variants, bitwise;
+    # then a table past the slab limit, which takes the wide variant ---- #
     for key, (links_s, vars_s, runs) in sorted(seen["and_reduce"].items()):
-        if not torch.equal(and_reduce(links_s, vars_s),
-                           and_reduce_plain(links_s, vars_s)):
-            raise AssertionError("K2 kernel != plain at H=%d K=%d W=%d (%s)"
-                                 % (key[1:3] + (key[4], sorted(runs))))
-        log("K2: H=%d K=%d W=%d V+1=%d (runs %s) bitwise equal"
-            % (key[1], key[2], key[4], key[3], ",".join(sorted(runs))))
-    links_d, vars_d, _ = max(seen["and_reduce"].values(),
-                             key=lambda lv: lv[1].numel())
-    k2_ms = cuda_ms(lambda: and_reduce(links_d, vars_d))
-    k2_plain_ms = cuda_ms(lambda: and_reduce_plain(links_d, vars_d))
-    H, K = vars_d.shape
-    log("K2: and_reduce H=%d K=%d W=%d (V+1=%d): kernel %.4f ms, plain "
-        "%.4f ms" % (H, K, links_d.shape[1], links_d.shape[0], k2_ms,
-                     k2_plain_ms))
-    kernels["and_reduce"] = dict(
-        name="and_reduce", route="cuda",
-        source="hgtpu_torch/csrc/and_reduce.cu",
-        replaces="hgtpu/ops/compat_kernel.py:36",
-        max_abs_err=0.0, ms=k2_ms, plain_ms=k2_plain_ms,
-        shape="H=%d K=%d W=%d" % (H, K, links_d.shape[1]),
-        shapes_checked=len(seen["and_reduce"]))
-    del seen
+        kind, ws = k2_plan(*links_s.shape)
+        if kind != "slab":
+            raise AssertionError("K2: the path's table V+1=%d W=%d does not "
+                                 "take the slab kernel" % links_s.shape)
+        want = and_reduce_plain(links_s, vars_s)
+        for name, fn in (("slab", lambda: and_reduce_slab(links_s, vars_s,
+                                                          ws)),
+                         ("wide", lambda: and_reduce_wide(links_s, vars_s))):
+            if not torch.equal(fn(), want):
+                raise AssertionError("K2 %s kernel != plain at H=%d K=%d "
+                                     "W=%d (%s)" % ((name,) + key[1:3]
+                                                    + (key[4], sorted(runs))))
+        log("K2: H=%d K=%d W=%d V+1=%d (runs %s): slab (WS=%d) and wide "
+            "kernels bitwise equal" % (key[1], key[2], key[4], key[3],
+                                       ",".join(sorted(runs)), ws))
+    rng = np.random.default_rng(4)
+    V1w = 14000
+    links_w = torch.from_numpy(rng.integers(
+        0, 2**32, (V1w, 113), dtype=np.uint64).astype(np.uint32)
+        .view(np.int32)).to(dev)
+    vars_w = torch.from_numpy(rng.integers(
+        -V1w - 4, V1w + 4, (8192, 16)).astype(np.int32)).to(dev)
+    before = and_reduce_slab.launches, and_reduce_wide.launches
+    got = and_reduce(links_w, vars_w)
+    if k2_plan(V1w, 113) != ("wide", None) \
+            or (and_reduce_slab.launches, and_reduce_wide.launches) \
+            != (before[0], before[1] + 1) \
+            or not torch.equal(got, and_reduce_plain(links_w, vars_w)):
+        raise AssertionError("K2: a table of V+1=%d rows did not go "
+                             "bitwise through the wide kernel" % V1w)
+    log("K2: synthetic table V+1=%d W=113 H=8192 K=16 (indices out of "
+        "range on both sides): the wide kernel, bitwise equal" % V1w)
+
+    def k2_records(links_s, vars_s, where):
+        """The slab kernel, the wide (L2) kernel and the plain
+        version timed in turns: plain, slab, wide, slab, wide, plain;
+        each ms is the mean of its two turns."""
+        V1, W = links_s.shape
+        H, K = vars_s.shape
+        ws = k2_plan(V1, W)[1]
+        fns = {"plain": lambda: and_reduce_plain(links_s, vars_s),
+               "slab": lambda: and_reduce_slab(links_s, vars_s, ws),
+               "wide": lambda: and_reduce_wide(links_s, vars_s)}
+        turns = {k: [] for k in fns}
+        for k in ("plain", "slab", "wide", "slab", "wide", "plain"):
+            turns[k].append(cuda_ms(fns[k]))
+        ms = {k: sum(v) / len(v) for k, v in turns.items()}
+        # K = 0: the slab staged, the tiles walked, all-ones rows stored
+        stage_ms = cuda_ms(lambda: and_reduce_slab(links_s, vars_s[:, :0],
+                                                   ws))
+        b_ms, b_by = bound_ms(4 * (V1 * W + H * K + H * W), H * K * W,
+                              PEAK_F32_S)
+        gather = H * K * W * 4
+        log("K2: %s H=%d K=%d W=%d V+1=%d: slab (WS=%d) %.4f ms (%.1f TB/s "
+            "of gathered rows; %.4f ms of it with K = 0), wide %.4f ms (%.1f "
+            "TB/s), plain %.4f ms; bound %.4f ms (%s), slab at %.1f %% of "
+            "it; turns %s"
+            % (where, H, K, W, V1, ws, ms["slab"], gather / ms["slab"] / 1e9,
+               stage_ms, ms["wide"], gather / ms["wide"] / 1e9, ms["plain"],
+               b_ms, b_by, 100 * b_ms / ms["slab"],
+               {k: [round(x, 4) for x in v] for k, v in turns.items()}))
+        common = dict(route="cuda", source="hgtpu_torch/csrc/and_reduce.cu",
+                      replaces="hgtpu/ops/compat_kernel.py:36",
+                      max_abs_err=0.0, plain_ms=ms["plain"], bound_ms=b_ms,
+                      bound_by=b_by, library_ms=None,
+                      library="none: torch has no bitwise-AND reduction",
+                      shape="H=%d K=%d W=%d V+1=%d (%s)" % (H, K, W, V1,
+                                                            where),
+                      shapes_checked=len(seen["and_reduce"]))
+        return (dict(common, name="and_reduce_slab", ms=ms["slab"], ws=ws,
+                     wide_ms=ms["wide"], k0_ms=stage_ms,
+                     turns_ms=turns["slab"]),
+                dict(common, name="and_reduce_wide", ms=ms["wide"],
+                     turns_ms=turns["wide"]))
+
+    # the largest H x K of the warm-ups, and the production rescue's fold
+    k2_large = max(seen["and_reduce"], key=lambda k: k[1] * k[2])
+    k2_rescue = max((k for k, v in seen["and_reduce"].items()
+                     if "prod-scale" in v[2]), key=lambda k: k[1] * k[2],
+                    default=None)
+    for key, where in ((k2_large, "largest"), (k2_rescue, "prod rescue")):
+        if key is None or (where != "largest" and key == k2_large):
+            continue
+        slab_rec, wide_rec = k2_records(*seen["and_reduce"][key][:2], where)
+        kernels.append(slab_rec)
+        off_path.append(wide_rec)
+    t_w = cuda_ms(lambda: and_reduce_wide(links_w, vars_w))
+    t_wp = cuda_ms(lambda: and_reduce_plain(links_w, vars_w))
+    b_ms, b_by = bound_ms(4 * (V1w * 113 + 8192 * 16 + 8192 * 113),
+                          8192 * 16 * 113, PEAK_F32_S)
+    off_path.append(dict(off_path[-1], ms=t_w, plain_ms=t_wp, bound_ms=b_ms,
+                         bound_by=b_by, turns_ms=[t_w],
+                         shape="H=8192 K=16 W=113 V+1=%d (synthetic)" % V1w))
+    log("K2: wide kernel at the synthetic table %.4f ms, plain %.4f ms"
+        % (t_w, t_wp))
+    del seen, links_w, vars_w, got
 
     # ---- compat_mxu's product at prod-scale's shape: bf16 operands,
     # float32 output, equal to the float64 product (exact counts) ---- #
@@ -441,11 +603,13 @@ def main():
 
     def counts():
         return {"placement_scores": placement_scores.launches,
-                "and_reduce": and_reduce.launches}
+                "and_reduce_slab": and_reduce_slab.launches,
+                "and_reduce_wide": and_reduce_wide.launches}
 
     def reset():
         placement_scores.launches = 0
-        and_reduce.launches = 0
+        and_reduce_slab.launches = 0
+        and_reduce_wide.launches = 0
 
     # ---- host-engine path: counts cover exactly these two runs ---- #
     reset()
@@ -553,33 +717,42 @@ def main():
             scale_fold = "rescue.fold" in stages
 
     # ---- 8. proof of path ---- #
-    for name in kernels:
+    for rec in kernels + off_path:
+        rec["launches"] = prod_launches[rec["name"]]
+    for name in ("placement_scores", "and_reduce_slab"):
         if host_launches[name] <= 0:
             raise AssertionError("%s never launched on the host-engine path"
                                  % name)
-        kernels[name]["launches"] = prod_launches[name]
     if toy_launches["placement_scores"] <= 0 \
             or scale_launches["placement_scores"] <= 0:
         raise AssertionError("K1 did not launch in both production runs")
-    if scale_fold and scale_launches["and_reduce"] <= 0:
+    if scale_fold and scale_launches["and_reduce_slab"] <= 0:
         raise AssertionError("the prod-scale rescue reached the fold but "
                              "K2 never launched")
-    if prod_launches["and_reduce"] <= 0:
+    if prod_launches["and_reduce_slab"] <= 0:
         raise AssertionError("K2 never launched on the production path")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
+    if "hgtpu" in sys.modules:
+        raise AssertionError("the JAX package hgtpu was imported")
     log("proof: launches host path %s, production path %s (prod-scale %s; "
-        "rescue reached the fold: %s); jax imported: no; native verifier "
-        "loaded: %s" % (host_launches, prod_launches, scale_launches,
-                        scale_fold, big_gpu.native is not None))
+        "rescue reached the fold: %s); jax imported: no; hgtpu imported: "
+        "no; native verifier loaded: %s"
+        % (host_launches, prod_launches, scale_launches, scale_fold,
+           big_gpu.native is not None))
     log("wall: chip_smoke %.1f s" % (time.perf_counter() - t_start))
 
     order = ("name", "route", "source", "replaces", "launches",
-             "max_abs_err", "ms", "plain_ms")
-    log(json.dumps({"kernels": [
-        {k: kernels[n][k] for k in order
-         + tuple(k for k in kernels[n] if k not in order)}
-        for n in ("placement_scores", "and_reduce")]}))
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")
+
+    def ordered(recs):
+        return [{k: r[k] for k in order + tuple(k for k in r
+                                                if k not in order)}
+                for r in recs]
+
+    log(json.dumps({"kernels": ordered(kernels),
+                    "off_path": ordered(off_path)}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

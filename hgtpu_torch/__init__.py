@@ -1,9 +1,9 @@
 """hgtpu_torch — the PyTorch / CUDA port of hgtpu for one NVIDIA H100.
 
-Mirrors hgtpu's layout (``ops``, ``align``, ``typer``, ``pipeline``) and
-is held bit for bit against it.  It imports torch, numpy and hgtpu's
-jax-free packages (``hgtpu.db``, ``hgtpu.sim``, ``hgtpu.utils``,
-``hgtpu.native``, ``hgtpu.validate``), never jax.
+Mirrors hgtpu's layout (``db``, ``sim``, ``utils``, ``ops``, ``align``,
+``typer``, ``parallel``, ``pipeline``) and is held bit for bit against
+it.  It imports torch and numpy, and nothing of hgtpu or jax: the host
+modules it shares with hgtpu are its own copies.
 
 Every device function takes an explicit ``device``; ``default_device()``
 is ``cuda`` when a card is present and ``cpu`` otherwise.  The algebra is

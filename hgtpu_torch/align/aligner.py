@@ -14,10 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hgtpu.db.catalog import GeneRef
-from hgtpu.utils.dna import decode_seq
-from hgtpu.utils.trace import TRACE
-
+from ..db.catalog import GeneRef
+from ..utils.dna import decode_seq
+from ..utils.trace import TRACE
 from .. import resolve_device
 from ..ops.placement import (backbone_pwm, encode_reads,
                              place_batch_packed, place_scan_batch)
@@ -873,7 +872,7 @@ class GeneAligner:
         cached = self.__dict__.get("_indel_fast")
         if cached is not None:
             return cached
-        from hgtpu.db.catalog import VT_DELETION, VT_INSERTION
+        from ..db.catalog import VT_DELETION, VT_INSERTION
 
         gene = self.gene
         MAXI = 16

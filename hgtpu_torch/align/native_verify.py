@@ -12,8 +12,8 @@ import os
 
 import numpy as np
 
-from hgtpu.db.catalog import GeneRef, VT_SINGLE, VT_DELETION, VT_INSERTION
-from hgtpu.utils.dna import encode_seq
+from ..db.catalog import GeneRef, VT_SINGLE, VT_DELETION, VT_INSERTION
+from ..utils.dna import encode_seq
 
 MAX_OPS = 256
 _KINDS = ("mismatch", "deletion", "insertion")

@@ -16,8 +16,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from hgtpu.db.catalog import GeneRef, VT_SINGLE, VT_DELETION, VT_INSERTION
-from hgtpu.utils.dna import encode_seq
+from ..db.catalog import GeneRef, VT_SINGLE, VT_DELETION, VT_INSERTION
+from ..utils.dna import encode_seq
 
 
 def build_haplotype_constraint(gene: GeneRef):

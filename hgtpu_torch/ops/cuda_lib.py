@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (``hgtpu_torch/csrc/*.cu``).
 
-nvcc compiles every source into ONE shared library with a plain C
+nvcc compiles each source to an object, one process per source, all
+started together, and links them into ONE shared library with a plain C
 interface for ``sm_90a``, loaded with ctypes: seconds to build, where a
 PyTorch extension that includes torch's headers takes minutes.  The
 build runs at first use, never at import, into ``build/hgtpu_torch/``
@@ -22,7 +23,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "hgtpu_torch")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -32,8 +33,12 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # pwm, n_rows, reads, N, m, out, P1, stream
     "hgtpu_torch_placement_scores": (_VP, _I, _VP, _I, _I, _VP, _I, _VP),
-    # links, V1, W, vars, H, K, out, stream
-    "hgtpu_torch_and_reduce": (_VP, _I, _I, _VP, _I, _I, _VP, _VP),
+    # links, V1, W, pitch, vars, H, K, out, opitch, ws, stream
+    "hgtpu_torch_and_reduce_slab": (_VP, _I, _I, _I, _VP, _I, _I, _VP, _I,
+                                    _I, _VP),
+    # links, V1, W, pitch, vars, H, K, out, opitch, stream
+    "hgtpu_torch_and_reduce_wide": (_VP, _I, _I, _I, _VP, _I, _I, _VP, _I,
+                                    _VP),
 }
 
 
@@ -73,13 +78,28 @@ def build() -> str:
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = "%s.%d.tmp" % (path, os.getpid())
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc, srcs = _nvcc(), sources()
+    objs = ["%s.%d.o" % (tmp, i) for i in range(len(srcs))]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, src]
+            for o, src in zip(objs, srcs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]                 # every source at once
+    runs = [(c, *p.communicate(), p.returncode) for c, p in zip(cmds, procs)]
+    if all(rc == 0 for *_, rc in runs):
+        link = [nvcc, *NVCC_FLAGS[:3], "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        runs.append((link, proc.stdout, proc.stderr, proc.returncode))
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
     with open(path + ".log", "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed (%d):\n%s"
-                           % (proc.returncode, proc.stderr[-4000:]))
+        for c, out, err, _rc in runs:
+            f.write(" ".join(c) + "\n" + out + err)
+    for c, _out, err, rc in runs:
+        if rc != 0:
+            raise RuntimeError("nvcc failed (%d): %s\n%s"
+                               % (rc, " ".join(c[-2:]), err[-4000:]))
     os.replace(tmp, path)    # atomic: no process loads a half-written file
     return path
 

@@ -17,8 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hgtpu.db.catalog import GeneRef, VT_SINGLE
-
+from ..db.catalog import GeneRef, VT_SINGLE
 from .placement_kernel import placement_scores
 
 _POS_BITS = 21
@@ -44,7 +43,7 @@ def encode_reads(seqs, read_len: int) -> np.ndarray:
 
     One table lookup over the joined byte buffer plus one fancy scatter —
     no per-read Python."""
-    from hgtpu.utils.dna import _ENC
+    from ..utils.dna import _ENC
 
     n = len(seqs)
     out = np.full((n, read_len), 4, dtype=np.int8)

@@ -37,9 +37,8 @@ import os
 import numpy as np
 import torch
 
-from hgtpu.db.catalog import GeneRef, VT_DELETION, VT_INSERTION, VT_SINGLE
-from hgtpu.utils.trace import TRACE
-
+from ..db.catalog import GeneRef, VT_DELETION, VT_INSERTION, VT_SINGLE
+from ..utils.trace import TRACE
 from .. import resolve_device
 from ..ops.placement import backbone_pwm, correlate_scores, encode_reads
 from ..typer.device_count import DeviceCounter

@@ -25,10 +25,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from hgtpu.db.catalog import GeneRef, VT_DELETION, VT_SINGLE
-from hgtpu.utils.dna import encode_seq, revcomp
-from hgtpu.utils.trace import TRACE
-
+from ..db.catalog import GeneRef, VT_DELETION, VT_SINGLE
+from ..utils.dna import encode_seq, revcomp
+from ..utils.trace import TRACE
 from .. import resolve_device
 from ..typer.counting import StatAccumulator
 from ..typer.engine import (DEVICE_FOLD_MIN_A, GeneTyper, GeneTypingResult,

@@ -13,9 +13,8 @@ from __future__ import annotations
 import random
 from collections import defaultdict
 
-from hgtpu.db.catalog import GeneRef
-from hgtpu.sim import simulate_reads
-
+from ..db.catalog import GeneRef
+from ..sim import simulate_reads
 from .. import resolve_device
 from ..align import GeneAligner
 from ..typer.engine import TypingOptions, type_gene

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from hgtpu.db.catalog import GeneRef, VT_SINGLE, VT_DELETION, VT_INSERTION
+from ..db.catalog import GeneRef, VT_SINGLE, VT_DELETION, VT_INSERTION
 
 _TYPE_NAME = {VT_SINGLE: "single", VT_DELETION: "deletion",
               VT_INSERTION: "insertion"}
@@ -426,7 +426,7 @@ def identify_ambiguous_diffs(ref_seq, Vars, alts_left, alts_right,
         cmp_left = 0
         left_set = {str(read_lo)}
 
-    from hgtpu.validate import SANITY_CHECK, check_amb_uniqueness
+    from ..validate import SANITY_CHECK, check_amb_uniqueness
     if SANITY_CHECK:
         check_amb_uniqueness(cmp_list, cmp_left, cmp_right,
                              list(left_set), list(right_set))

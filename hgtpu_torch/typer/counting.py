@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from hgtpu.db.catalog import GeneRef, VT_DELETION
+from ..db.catalog import GeneRef, VT_DELETION
 
 
 class HtOp:

@@ -19,10 +19,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hgtpu.db.catalog import GeneRef, VT_DELETION
-
+from ..db.catalog import GeneRef, VT_DELETION
 from .. import resolve_device
-from ..ops.compat_kernel import and_reduce
+from ..ops.compat_kernel import and_reduce, pitched
 
 MAX_HT_VARS = 16
 
@@ -50,8 +49,10 @@ class DeviceCounter:
         if arrays is None:
             arrays = self.build_arrays(gene)
         for name in TABLES:
-            setattr(self, name,
-                    torch.from_numpy(_as_i32(arrays[name])).to(self.device))
+            t = torch.from_numpy(_as_i32(arrays[name])).to(self.device)
+            if name == "links_packed":       # rows 16-byte aligned for K2
+                t = pitched(t)
+            setattr(self, name, t)
 
     @staticmethod
     def build_arrays(gene: GeneRef) -> dict:

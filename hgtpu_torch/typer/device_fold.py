@@ -61,7 +61,7 @@ class DeviceFold:
         import time as _time
 
         from .exons import get_exon_haplotypes
-        from hgtpu.utils.trace import TRACE
+        from ..utils.trace import TRACE
 
         _t_prep0 = _time.perf_counter()
         typer = self.typer

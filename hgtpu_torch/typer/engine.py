@@ -15,9 +15,8 @@ import dataclasses
 
 import numpy as np
 
-from hgtpu.db.catalog import GeneRef
-from hgtpu.utils.trace import TRACE
-
+from ..db.catalog import GeneRef
+from ..utils.trace import TRACE
 from .. import resolve_device
 from ..align.types import aln_key
 from .alts import (VarTable, alts_sorted_lists, get_alternatives,
@@ -255,8 +254,8 @@ def _gene_shared_state(gene: GeneRef) -> dict:
     naturally starts fresh).  At IMGT scale the alts equivalence index
     and the packed device tables cost ~1.5 s to build; typing many read
     sets / simulation tests against one gene shares them.  The key is
-    the port's own: hgtpu caches its jax tables under "_typer_shared" on
-    the same GeneRef."""
+    the port's own ("_typer_shared_torch"; hgtpu's GeneRef keeps its jax
+    tables under "_typer_shared")."""
     st = gene.__dict__.get("_typer_shared_torch")
     if st is None:
         st = {}
@@ -363,7 +362,7 @@ class GeneTyper:
         alignment whose cmp holds only matches and catalog SNPs.  Fills
         `memo[(pos, seq)] = {ht}` for alignments the fast path resolves;
         the rest fall through to read_hts unchanged."""
-        from hgtpu.utils.dna import encode_seq
+        from ..utils.dna import encode_seq
 
         gene = self.gene
         N = len(alns)
@@ -410,7 +409,7 @@ class GeneTyper:
         cannot fire) — so the ht string falls straight out of the cmp
         list, exactly as read_hts would produce.  Reads failing any gate
         fall through to read_hts unchanged."""
-        from hgtpu.utils.dna import encode_seq
+        from ..utils.dna import encode_seq
 
         gene = self.gene
         N = len(alns)
@@ -718,7 +717,7 @@ def choose_pairs(left_hts, right_hts, expected_interdist, gene=None):
         return left_hts, right_hts
     gap_dels = None
     if gene is not None:
-        from hgtpu.db.catalog import VT_DELETION
+        from ..db.catalog import VT_DELETION
         di = np.flatnonzero(gene.var_type == VT_DELETION)
         gap_dels = (gene.var_pos[di], gene.var_pos[di]
                     + gene.var_len[di] - 1, gene.var_len[di])

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from hgtpu.db.catalog import GeneRef, VT_SINGLE, VT_DELETION
+from ..db.catalog import GeneRef, VT_SINGLE, VT_DELETION
 
 _NT = "ACGTND"
 _NT_IDX = {c: i for i, c in enumerate(_NT)}
@@ -30,7 +30,7 @@ class Mpileup:
 
     def add_alignment(self, aln):
         """Accumulate one ReadAln's bases (M -> read nt, D -> 'D')."""
-        from hgtpu.utils.dna import encode_seq
+        from ..utils.dna import encode_seq
 
         counts = self.counts
         P = counts.shape[0]
@@ -57,7 +57,7 @@ class Mpileup:
         add_alignment calls without the per-read ufunc dispatch.
         `weights` (optional, aligned with alns) counts each alignment
         that many times — the caller's pair-level dedup weight."""
-        from hgtpu.utils.dna import encode_seq
+        from ..utils.dna import encode_seq
 
         P = self.counts.shape[0]
         seg_start = []
@@ -191,7 +191,7 @@ def error_correct(gene: GeneRef, mpileup: Mpileup, cmp_list, read_seq,
     num_correction = 0
     read_pos = 0
     seq = read_seq
-    from hgtpu.utils.dna import encode_seq
+    from ..utils.dna import encode_seq
 
     if read_codes is None:
         read_codes = encode_seq(read_seq)

@@ -1,0 +1,1 @@
+from .dna import encode_seq, decode_seq, revcomp, BASES

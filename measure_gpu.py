@@ -44,7 +44,7 @@ def main():
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from chip_smoke import build_gene, reads_of
-    from hgtpu.utils.trace import TRACE
+    from hgtpu_torch.utils.trace import TRACE
     from hgtpu_torch.align import GeneAligner
     from hgtpu_torch.ops import cuda_lib
     from hgtpu_torch.pipeline import type_reads

@@ -11,6 +11,7 @@ from hgtpu.db import build_gene_ref
 from hgtpu.sim import simulate_reads
 from hgtpu_torch.align import GeneAligner
 from tests.synth import make_gene_msa
+from tests.test_torch_db import carried
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -39,7 +40,7 @@ def test_align_batches_records_equal(min_var_freq):
     gene, _ = build_gene_ref("A", spec["names"], spec["rows"],
                              spec["ref_allele"], min_var_freq=min_var_freq)
     ja = JaxAligner(gene, device_verify="off")
-    ta = GeneAligner(gene, device="cpu")
+    ta = GeneAligner(carried(gene), device="cpu")
     for err in (0.0, 3.0):
         r1, r2, _ = simulate_reads(gene, [gene.allele_names[5],
                                           gene.allele_names[20]],
@@ -63,4 +64,4 @@ def test_device_verify_on_not_ported():
     gene, _ = build_gene_ref("A", spec["names"], spec["rows"],
                              spec["ref_allele"], min_var_freq=0.0)
     with pytest.raises(NotImplementedError, match="banded_dp"):
-        GeneAligner(gene, device_verify="on", device="cpu")
+        GeneAligner(carried(gene), device_verify="on", device="cpu")

@@ -23,6 +23,7 @@ from hgtpu_torch.typer import device_fold
 from hgtpu_torch.typer.device_count import TABLES, DeviceCounter
 from hgtpu_torch.typer.engine import GeneTyper, TypingOptions
 from tests.synth import make_gene_msa
+from tests.test_torch_db import carried
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -44,6 +45,12 @@ def generef():
     return ref
 
 
+@pytest.fixture(scope="module")
+def tgene(generef):
+    """hgtpu's gene as the port's own GeneRef."""
+    return carried(generef)
+
+
 def _jax_arrays(dc):
     return {name: np.asarray(getattr(dc, name)) for name in TABLES}
 
@@ -62,24 +69,24 @@ def _sample_hts(gene, n, seed):
     return hts
 
 
-def test_tables_built_equal_converted(generef):
+def test_tables_built_equal_converted(generef, tgene):
     jdc = JaxCounter(generef)
-    built = DeviceCounter(generef, "cpu")
-    carried = DeviceCounter.from_arrays(generef, _jax_arrays(jdc), "cpu")
+    built = DeviceCounter(tgene, "cpu")
+    across = DeviceCounter.from_arrays(tgene, _jax_arrays(jdc), "cpu")
     for name in TABLES:
-        a, b = getattr(built, name), getattr(carried, name)
+        a, b = getattr(built, name), getattr(across, name)
         assert a.dtype == b.dtype == torch.int32, name
         assert torch.equal(a, b), name
     assert np.array_equal(built.links_packed.numpy().view(np.uint32),
                           np.asarray(jdc.links_packed))
     with pytest.raises(KeyError):
-        DeviceCounter.from_arrays(generef, {"nd_pos": np.zeros(1)}, "cpu")
+        DeviceCounter.from_arrays(tgene, {"nd_pos": np.zeros(1)}, "cpu")
 
 
 @pytest.mark.parametrize("n,seed,k", [(200, 3, 16), (37, 9, 32)])
-def test_compat_masks_equal(generef, n, seed, k):
+def test_compat_masks_equal(generef, tgene, n, seed, k):
     jdc = JaxCounter(generef)
-    tdc = DeviceCounter(generef, "cpu")
+    tdc = DeviceCounter(tgene, "cpu")
     hts = _sample_hts(generef, n, seed)
     lefts, rights, vars_ = tdc.pack_hts(hts, k=k)
     got = tdc.compat_masks(lefts, rights, vars_)
@@ -127,10 +134,10 @@ def fold_capture(generef):
     return runs, levels
 
 
-def test_device_fold_run_equal(generef, fold_capture):
+def test_device_fold_run_equal(tgene, fold_capture):
     runs, _ = fold_capture
     for opts, hts_sorted, novel, grouped, want in runs:
-        typer = GeneTyper(generef, TypingOptions(**vars(opts)), "cpu")
+        typer = GeneTyper(tgene, TypingOptions(**vars(opts)), "cpu")
         got = typer.device_fold_run(hts_sorted, novel, grouped)
         assert len(got) == len(want) == 3
         for (rows, uw, tt), (rows_j, uw_j, tt_j) in zip(got, want):
@@ -141,7 +148,7 @@ def test_device_fold_run_equal(generef, fold_capture):
 
 
 @pytest.mark.parametrize("n_cap", [None, 3])
-def test_fold_levels_buffers_equal(generef, fold_capture, n_cap):
+def test_fold_levels_buffers_equal(tgene, fold_capture, n_cap):
     """The raw single-fetch buffer and the two-step outputs, including a
     cap below the unique count (the overflow layout)."""
     _, levels = fold_capture
@@ -152,7 +159,7 @@ def test_fold_levels_buffers_equal(generef, fold_capture, n_cap):
         want = [np.asarray(x) for x in jax_fold._fold_levels(*args, **kw)]
         arrays = [np.asarray(a) for a in args]
         tables = {n: a for n, a in zip(TABLES, arrays[:8])}
-        tdc = DeviceCounter.from_arrays(generef, tables, "cpu")
+        tdc = DeviceCounter.from_arrays(tgene, tables, "cpu")
         rest = [torch.from_numpy(np.array(a)) for a in arrays[8:]]
         got = device_fold._fold_levels(tdc.tables(), *rest, **kw)
         buf, fs, is_first, uw, min_idx = [g.numpy() for g in got]
@@ -164,12 +171,12 @@ def test_fold_levels_buffers_equal(generef, fold_capture, n_cap):
         assert np.array_equal(min_idx, want[4])
 
 
-def test_ht_masks_batch_equal(generef, fold_capture):
+def test_ht_masks_batch_equal(generef, tgene, fold_capture):
     """The engine's per-ht device batch (DeviceCounter) equals the host
     batch, and hgtpu's host batch, at all three levels."""
     runs, _ = fold_capture
     opts, hts_sorted, novel, _grouped, _out = runs[1]
-    typer = GeneTyper(generef, TypingOptions(**vars(opts)), "cpu")
+    typer = GeneTyper(tgene, TypingOptions(**vars(opts)), "cpu")
     dev, host, ref = {}, {}, {}
     typer.ht_masks_batch(hts_sorted, novel, dev)
     typer.ht_masks_batch_host(hts_sorted, novel, host)

@@ -14,7 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from hgtpu_torch.ops.compat_kernel import and_reduce, and_reduce_plain
+from hgtpu_torch.ops.compat_kernel import (and_reduce, and_reduce_plain,
+                                           and_reduce_slab, and_reduce_wide,
+                                           k2_plan)
 from hgtpu_torch.ops.placement_kernel import (placement_scores,
                                               placement_scores_plain)
 
@@ -94,30 +96,73 @@ def test_k1_kernel_unaligned_codes_and_ragged_width(cuda, seed, n, m, P):
     assert torch.equal(got, placement_scores_plain(pwm_d, reads_d))
 
 
+def _k2_operands(seed, V1, W, H, K, device):
+    """Random words (bit 31 set in about half), the all-ones sentinel
+    row last, indices out of range on both sides, padding slots."""
+    rng = np.random.default_rng(seed)
+    links = rng.integers(0, 2**32, (V1, W), dtype=np.uint64).astype(np.uint32)
+    links[:, 0] |= 0x80000000
+    links[V1 - 1] = 0xFFFFFFFF
+    vars_ = rng.integers(-V1 - 4, V1 + 4, (H, K)).astype(np.int32)
+    vars_[::3, K // 2:] = V1 - 1
+    return (torch.from_numpy(links.view(np.int32)).to(device),
+            torch.from_numpy(vars_).to(device))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("H,K,A", [(13, 16, 3600), (64, 32, 100),
                                    (16384, 32, 3600)])
 def test_k2_kernel_equals_plain(cuda, H, K, A):
-    rng = np.random.default_rng(H + K)
-    V = 40
-    links = rng.integers(0, 2**32, (V + 1, (A + 31) // 32),
-                         dtype=np.uint64).astype(np.uint32)
-    links[V] = 0xFFFFFFFF
-    vars_ = rng.integers(0, V, (H, K)).astype(np.int32)
-    vars_[:, K // 2:] = V
-    links_d = torch.from_numpy(links.view(np.int32)).to(cuda)
-    vars_d = torch.from_numpy(vars_).to(cuda)
-    before = and_reduce.launches
+    """and_reduce on the card: the slab variant at these tables, one
+    launch counted, bitwise equal to the plain version."""
+    links_d, vars_d = _k2_operands(H + K, 41, (A + 31) // 32, H, K, cuda)
+    before = and_reduce_slab.launches, and_reduce_wide.launches
     got = and_reduce(links_d, vars_d)
     torch.cuda.synchronize()
-    assert and_reduce.launches == before + 1
+    assert (and_reduce_slab.launches, and_reduce_wide.launches) == \
+        (before[0] + 1, before[1])
     assert torch.equal(got, and_reduce_plain(links_d, vars_d))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("V1,W,H,K", [
+    (41, 1, 301, 1), (41, 3, 301, 33), (41, 4, 301, 16),
+    (1498, 113, 8192, 16), (1498, 200, 301, 33), (3000, 113, 1000, 16),
+    (6000, 113, 999, 32), (11000, 113, 777, 17)])
+def test_k2_variants_equal_plain(cuda, V1, W, H, K):
+    """Both variants on the same operands: the slab kernel at the width
+    k2_plan picks (32, 16, 8 and 4 among these) and at every narrower
+    width that fits, and the wide kernel."""
+    links_d, vars_d = _k2_operands(V1 + W + K, V1, W, H, K, cuda)
+    want = and_reduce_plain(links_d, vars_d)
+    _, ws = k2_plan(V1, W)
+    for w in [x for x in (32, 16, 8, 4) if x <= ws]:
+        assert torch.equal(and_reduce_slab(links_d, vars_d, w), want), w
+    assert torch.equal(and_reduce_wide(links_d, vars_d), want)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_k2_wide_table_takes_the_wide_kernel(cuda):
+    """A table past the slab limit goes to the wide kernel; the slab
+    kernel refuses it."""
+    V1 = 14000
+    assert k2_plan(V1, 113) == ("wide", None)
+    links_d, vars_d = _k2_operands(7, V1, 113, 2000, 16, cuda)
+    before = and_reduce_slab.launches, and_reduce_wide.launches
+    got = and_reduce(links_d, vars_d)
+    torch.cuda.synchronize()
+    assert (and_reduce_slab.launches, and_reduce_wide.launches) == \
+        (before[0], before[1] + 1)
+    assert torch.equal(got, and_reduce_plain(links_d, vars_d))
+    with pytest.raises(RuntimeError, match="and_reduce_slab"):
+        and_reduce_slab(links_d, vars_d, 4)
+
+
+@pytest.mark.cuda
 def test_type_reads_card_equals_cpu(cuda):
-    from hgtpu.db import build_gene_ref
-    from hgtpu.sim import simulate_reads
+    from hgtpu_torch.db import build_gene_ref
+    from hgtpu_torch.sim import simulate_reads
     from hgtpu_torch.pipeline import type_reads
     from hgtpu_torch.typer import TypingOptions
     from synth import make_gene_msa    # tests/ is on sys.path under pytest
@@ -130,13 +175,13 @@ def test_type_reads_card_equals_cpu(cuda):
                                simulate_interval=4, perbase_errorrate=1.0,
                                seed=5)
     reads = ([(r.name, r.seq) for r in r1], [(r.name, r.seq) for r in r2])
-    launches = placement_scores.launches, and_reduce.launches
+    launches = placement_scores.launches, and_reduce_slab.launches
     # the host-engine path ("auto" on CUDA is the production path)
     on_card = type_reads(gene, *reads,
                          TypingOptions(simulation=True, device_typing="off"),
                          device=cuda)
     assert placement_scores.launches > launches[0]
-    assert and_reduce.launches > launches[1]
+    assert and_reduce_slab.launches > launches[1]
     on_cpu = type_reads(gene, *reads,
                         TypingOptions(simulation=True, device_counting="off"),
                         device="cpu")
@@ -155,8 +200,8 @@ def test_count_classes_card_equals_cpu(cuda):
     gene, fused and tiered."""
     import os
 
-    from hgtpu.db import build_gene_ref
-    from hgtpu.sim import simulate_reads
+    from hgtpu_torch.db import build_gene_ref
+    from hgtpu_torch.sim import simulate_reads
     from hgtpu_torch.parallel.e2e import ShardedTyper
     from synth import make_gene_msa
 

@@ -22,6 +22,7 @@ from hgtpu.parallel.sharded import make_mesh
 from hgtpu.sim import simulate_reads
 from hgtpu_torch.parallel import e2e
 from hgtpu_torch.parallel.e2e import ShardedTyper
+from tests.test_torch_db import carried
 from tests.test_torch_e2e_passes import ERRS, indel_ref, truths  # noqa: F401
 
 
@@ -36,7 +37,7 @@ def _torch_threads():
 @pytest.fixture(scope="module")
 def typers(indel_ref):  # noqa: F811
     return {cap: (JaxTyper(indel_ref, make_mesh(1), class_cap=cap),
-                  ShardedTyper(indel_ref, "cpu", class_cap=cap))
+                  ShardedTyper(carried(indel_ref), "cpu", class_cap=cap))
             for cap in (8, 2048)}
 
 
@@ -164,8 +165,8 @@ def test_count_classes_past_bf16_equals_hgtpu(monkeypatch):
         return out
 
     monkeypatch.setattr(e2e, "count_product", spy)
-    got = run(ShardedTyper(gene, "cpu", read_len=901), seqs, True, "fused",
-              monkeypatch)
+    got = run(ShardedTyper(carried(gene), "cpu", read_len=901), seqs, True,
+              "fused", monkeypatch)
     assert_same_dict(got, want)
     odd = [int(((c > 256) & (c % 2 == 1)).sum()) for c in counts]
     assert counts and min(odd) > 0

@@ -27,6 +27,7 @@ from hgtpu.parallel.sharded import make_mesh
 from hgtpu.sim import simulate_reads
 from hgtpu_torch.parallel.e2e import ShardedTyper
 from tests.synth import make_gene_msa
+from tests.test_torch_db import carried
 from tests.test_torch_e2e_tables import as_numpy
 
 ERRS = (0.0, 5.0)     # per-base error, in percent (the simulator's unit)
@@ -61,7 +62,8 @@ def truths(ref):
 
 @pytest.fixture(scope="module")
 def typers(indel_ref):
-    return JaxTyper(indel_ref, make_mesh(1)), ShardedTyper(indel_ref, "cpu")
+    return (JaxTyper(indel_ref, make_mesh(1)),
+            ShardedTyper(carried(indel_ref), "cpu"))
 
 
 @pytest.fixture(scope="module")

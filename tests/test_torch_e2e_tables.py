@@ -22,6 +22,7 @@ from hgtpu_torch.parallel import e2e
 from hgtpu_torch.parallel.e2e import (ShardedTyper, count_product,
                                       max_overlap, tables_from_arrays)
 from tests.synth import make_gene_msa
+from tests.test_torch_db import carried
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -54,7 +55,8 @@ GENES = {"toy": _toy, "indel": _indel}
 @pytest.fixture(scope="module", params=sorted(GENES))
 def typers(request):
     gene = GENES[request.param]()
-    return gene, JaxTyper(gene, make_mesh(1)), ShardedTyper(gene, "cpu")
+    return (gene, JaxTyper(gene, make_mesh(1)),
+            ShardedTyper(carried(gene), "cpu"))
 
 
 def as_numpy(t: torch.Tensor, like: np.ndarray) -> np.ndarray:
@@ -112,7 +114,7 @@ def _dense_gene():
                     for k in (1, 2, 3)]
     names = ["A*%02d:01" % (k + 1) for k in range(4)]
     ref, _ = build_gene_ref("A", names, rows, names[0], min_var_freq=0.0)
-    return ref
+    return carried(ref)
 
 
 def test_bf16_count_bound_raises(monkeypatch):
@@ -152,7 +154,7 @@ def test_count_product_exact_above_bf16(n):
 
 @pytest.mark.parametrize("span", [1, 7, 100, 131])
 def test_max_overlap_equals_brute_force(span):
-    gene = _indel()
+    gene = carried(_indel())
     pos = gene.var_pos.astype(np.int64)
     right = gene.var_right.astype(np.int64)
     want = max(int(((pos <= lo + span - 1) & (right >= lo)).sum())

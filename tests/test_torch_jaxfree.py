@@ -1,7 +1,8 @@
-"""hgtpu_torch runs where jax cannot be imported: a subprocess with jax
-blocked imports every module of the port and types a tiny gene on the
-host-engine path and on the production path, and no source file of the
-port imports jax."""
+"""hgtpu_torch stands alone: a subprocess with jax and hgtpu blocked
+imports every module of the port, builds and simulates a tiny gene with
+the port's own db and sim, and types it on the host-engine path and on
+the production path; and no source file of the port, nor chip_smoke.py
+or measure_gpu.py, imports jax or hgtpu."""
 import ast
 import os
 import subprocess
@@ -12,6 +13,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SCRIPT = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any import of jax now raises
+sys.modules["hgtpu"] = None        # and any import of the JAX package
 import torch
 torch.set_num_threads(2)
 import hgtpu_torch
@@ -19,8 +21,8 @@ for m in pkgutil.walk_packages(hgtpu_torch.__path__, "hgtpu_torch."):
     importlib.import_module(m.name)
 sys.path.insert(0, "tests")
 from synth import make_gene_msa
-from hgtpu.db import build_gene_ref
-from hgtpu.sim import simulate_reads
+from hgtpu_torch.db import build_gene_ref
+from hgtpu_torch.sim import simulate_reads
 from hgtpu_torch.pipeline import type_reads
 from hgtpu_torch.typer import TypingOptions
 spec = make_gene_msa(seed=3, n_alleles=12, length=900)
@@ -34,7 +36,8 @@ for kw in (dict(device_counting="off"), dict(device_counting="on"),
                      [(r.name, r.seq) for r in r2],
                      TypingOptions(simulation=True, **kw), device="cpu")
     assert res.prob[0][0] == truth, res.prob[:3]
-assert sys.modules["jax"] is None
+assert sys.modules["jax"] is None and sys.modules["hgtpu"] is None
+assert type(gene).__module__ == "hgtpu_torch.db.catalog"
 print("TYPED", truth)
 """
 
@@ -57,17 +60,19 @@ def _imports(path):
             yield node.module
 
 
-def test_no_source_imports_jax():
+def _sources():
     pkg = os.path.join(ROOT, "hgtpu_torch")
     for dirpath, _dirs, files in os.walk(pkg):
-        for f in files:
-            if not f.endswith(".py"):
-                continue
-            path = os.path.join(dirpath, f)
-            for name in _imports(path):
-                assert name.split(".")[0] != "jax", (path, name)
-                # only hgtpu's jax-free packages may be borrowed
-                if name.split(".")[0] == "hgtpu":
-                    assert name.split(".")[1] in (
-                        "db", "sim", "utils", "native", "validate"), \
-                        (path, name)
+        yield from (os.path.join(dirpath, f) for f in files
+                    if f.endswith(".py"))
+    yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "measure_gpu.py")
+
+
+def test_no_source_imports_jax():
+    paths = list(_sources())
+    assert len(paths) > 30
+    for path in paths:
+        for name in _imports(path):
+            # hgtpu_torch is the port itself; jax and hgtpu are refused
+            assert name.split(".")[0] not in ("jax", "hgtpu"), (path, name)

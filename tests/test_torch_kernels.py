@@ -5,8 +5,15 @@ port's wrappers take their plain versions, which must equal hgtpu's XLA
 path and its Pallas kernel (interpret mode) exactly.  The tolerance
 everywhere is exact equality: scores are sums of 0/1 entries and the
 bitsets are integers.  The CUDA kernels themselves are held against
-these plain versions on the card by tests/test_torch_cuda.py.
+these plain versions on the card by tests/test_torch_cuda.py; here each
+kernel's index algebra (K1's tiles, K2's slabs, tiles and vars ring) is
+decomposed in numpy as the card runs it and held against hgtpu, and the
+choice of K2's variant is tested as the pure function of the table's
+shape that it is.
 """
+import os
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,8 +23,12 @@ import torch
 from hgtpu.ops.compat_kernel import and_reduce_pallas
 from hgtpu.ops.placement import correlate_scores as jax_correlate_scores
 from hgtpu.ops.placement_pallas import correlate_scores_pallas
+from hgtpu_torch.ops import compat_kernel as ck
+from hgtpu_torch.ops import cuda_lib
 from hgtpu_torch.ops import placement as tp
-from hgtpu_torch.ops.compat_kernel import and_reduce
+from hgtpu_torch.ops.compat_kernel import (and_reduce, and_reduce_plain,
+                                           and_reduce_slab, and_reduce_wide,
+                                           k2_plan)
 from hgtpu_torch.ops.placement_kernel import (k16_operands, placement_scores,
                                               placement_scores_plain)
 
@@ -179,6 +190,161 @@ def test_k2_plain_equals_pallas(H, K, A):
                      torch.from_numpy(vars_))
     assert got.dtype == torch.int32 and got.shape == (H, want.shape[1])
     assert np.array_equal(got.numpy().view(np.uint32), want)
+
+
+def _edge_links_vars(seed, V1, W, H, K):
+    """Random words (bit 31 set in about half), the all-ones sentinel
+    row last, and indices spread over [-(V1 + 4), V1 + 4): below -V1 and
+    past V they clamp, in [-V1, -1] they count from the end."""
+    rng = np.random.default_rng(seed)
+    links = rng.integers(0, 2**32, (V1, W), dtype=np.uint64).astype(np.uint32)
+    links[:, 0] |= 0x80000000
+    links[V1 - 1] = 0xFFFFFFFF
+    vars_ = rng.integers(-V1 - 4, V1 + 4, (H, K)).astype(np.int32)
+    vars_[::3, K // 2:] = V1 - 1                   # padding slots
+    return links, vars_
+
+
+def _and_reduce_as_on_the_card(links, vars_, n_share):
+    """K2's slab kernel decomposed as the card runs it: the width k2_plan
+    picks; per slab of ws words (words past W hold garbage, as the
+    unstaged shared memory does) and per block of the slab (n_share of
+    them, each walking tiles share, share + n_share, ...), the tile's
+    vars staged KC columns at a time with zeros past H and K, hgtpu's
+    index (negatives from the end, then clamped) into the slab rows, an
+    accumulator reset at the first chunk and stored at the last, masked
+    to the slab's valid words and to h < H."""
+    V1, W = links.shape
+    H, K = vars_.shape
+    kind, ws = k2_plan(V1, W)
+    assert kind == "slab"
+    HT = ck.tile_rows(ws)
+    n_tiles, n_kc = -(-H // HT), max(1, -(-K // ck.KC))
+    rng = np.random.default_rng(1)
+    out = np.zeros((H, W), np.uint32)
+    written = np.zeros((H, W), np.int64)
+    for w_base in range(0, W, ws):
+        wv = min(ws, W - w_base)
+        slab = rng.integers(0, 2**32, (V1, ws), dtype=np.uint64) \
+            .astype(np.uint32)
+        slab[:, :wv] = links[:, w_base:w_base + wv]
+        for share in range(min(n_share, n_tiles)):
+            for t in range(share, n_tiles, n_share):
+                h = t * HT + np.arange(HT)
+                for c in range(n_kc):
+                    k = c * ck.KC + np.arange(ck.KC)
+                    ok = (h[:, None] < H) & (k[None, :] < K)
+                    ring = np.where(ok, vars_[np.minimum(h, H - 1)][
+                        :, np.minimum(k, K - 1)], 0).astype(np.int64)
+                    if c == 0:
+                        acc = np.full((HT, ws), 0xFFFFFFFF, np.uint32)
+                    for kk in range(min(ck.KC, K - c * ck.KC)):
+                        v = ring[:, kk]
+                        acc &= slab[np.clip(np.where(v < 0, v + V1, v), 0,
+                                            V1 - 1)]
+                keep = h < H
+                out[h[keep], w_base:w_base + wv] = acc[keep, :wv]
+                written[h[keep], w_base:w_base + wv] += 1
+    assert (written == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("W", [1, 3, 4, 113, 200])
+@pytest.mark.parametrize("K", [1, 16, 33])
+def test_k2_equals_pallas_at_slab_edges(W, K):
+    """The plain version and the slab kernel's decomposition against
+    hgtpu's Pallas kernel (interpret mode): ragged last slabs, H = 301
+    (a multiple of no tile), K across the ring's chunks, indices out of
+    range on both sides, words with bit 31 set."""
+    links, vars_ = _edge_links_vars(W * 7 + K, 41, W, 301, K)
+    want = np.asarray(and_reduce_pallas(jnp.asarray(links),
+                                        jnp.asarray(vars_)))
+    got = and_reduce_plain(torch.from_numpy(links.view(np.int32)),
+                           torch.from_numpy(vars_))
+    assert np.array_equal(got.numpy().view(np.uint32), want)
+    for n_share in (1, 3):
+        assert np.array_equal(_and_reduce_as_on_the_card(links, vars_,
+                                                         n_share), want)
+
+
+@pytest.mark.parametrize("V1,ws", [(3000, 16), (6000, 8), (11000, 4)])
+def test_k2_narrow_slabs_equal_pallas(V1, ws):
+    """Tables tall enough that the slab narrows (W = 113)."""
+    assert k2_plan(V1, 113) == ("slab", ws)
+    links, vars_ = _edge_links_vars(V1, V1, 113, 301, 16)
+    want = np.asarray(and_reduce_pallas(jnp.asarray(links),
+                                        jnp.asarray(vars_)))
+    assert np.array_equal(_and_reduce_as_on_the_card(links, vars_, 2), want)
+
+
+def test_k2_plan_is_a_function_of_the_table_shape():
+    """The widest slab that fits beside the vars ring and that W can
+    use; past WS = 4 the wide variant."""
+    assert k2_plan(1498, 113) == ("slab", 32)    # the 3,600-allele panel
+    assert k2_plan(1, 1) == ("slab", 4)
+    assert k2_plan(1498, 3) == ("slab", 4)
+    assert k2_plan(1498, 16) == ("slab", 16)
+    assert k2_plan(1498, 17) == ("slab", 32)
+    limit = max(v for v in range(1, 20000)
+                if ck.slab_smem(v, 4) <= ck.SMEM_MAX)
+    assert 11_000 < limit < 14_000
+    assert k2_plan(limit, 113) == ("slab", 4)
+    assert k2_plan(limit + 1, 113) == ("wide", None)
+    edges = [max(v for v in range(1, 20000)
+                 if ck.slab_smem(v, ws) <= ck.SMEM_MAX)
+             for ws in ck.SLAB_WIDTHS]
+    assert edges[0] >= 1498                       # the panel takes WS = 32
+    for V1 in [1, 41, 1498] + edges + [e + 1 for e in edges]:
+        for W in (1, 3, 4, 5, 8, 9, 16, 17, 32, 33, 113, 200):
+            need = max(4, 1 << (W - 1).bit_length())
+            fits = [ws for ws in ck.SLAB_WIDTHS
+                    if ws <= need and ck.slab_smem(V1, ws) <= ck.SMEM_MAX]
+            assert k2_plan(V1, W) == (("slab", max(fits)) if fits
+                                      else ("wide", None)), (V1, W)
+
+
+def test_k2_variants_take_plain_on_cpu_and_count_no_launch():
+    links, vars_ = _edge_links_vars(5, 41, 7, 20, 5)
+    lt = torch.from_numpy(links.view(np.int32))
+    vt = torch.from_numpy(vars_)
+    before = and_reduce_slab.launches, and_reduce_wide.launches
+    want = and_reduce_plain(lt, vt)
+    for fn in (and_reduce, and_reduce_slab, and_reduce_wide):
+        assert torch.equal(fn(lt, vt), want)
+    assert (and_reduce_slab.launches, and_reduce_wide.launches) == before
+    with pytest.raises(RuntimeError, match="no and_reduce kernel"):
+        and_reduce_slab(lt.to("meta"), vt.to("meta"))
+
+
+def test_kernel_build_is_one_nvcc_per_source(tmp_path, monkeypatch):
+    """cuda_lib.build compiles every source in its own nvcc process and
+    links the objects into one library; a failing source raises and
+    leaves no library."""
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!%s\nimport sys\nargs = sys.argv[1:]\n"
+        "open(%r, 'a').write(' '.join(args) + '\\n')\n"
+        "if any('fail' in a for a in args): sys.exit(3)\n"
+        "open(args[args.index('-o') + 1], 'w').write('x')\n"
+        % (sys.executable, str(tmp_path / "calls")))
+    fake.chmod(0o755)
+    monkeypatch.setattr(cuda_lib, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", str(tmp_path / "build"))
+    path = cuda_lib.build()
+    calls = (tmp_path / "calls").read_text().splitlines()
+    srcs = cuda_lib.sources()
+    assert len(srcs) >= 2 and len(calls) == len(srcs) + 1
+    assert sorted(c.split()[-1] for c in calls[:-1]) == sorted(srcs)
+    assert all(" -c " in c for c in calls[:-1])
+    assert "-shared" in calls[-1] and " -c " not in calls[-1]
+    assert os.path.exists(path) and os.path.exists(path + ".log")
+    assert sorted(os.listdir(tmp_path / "build")) == sorted(
+        [os.path.basename(path), os.path.basename(path) + ".log"])
+    monkeypatch.setattr(cuda_lib, "sources", lambda: srcs + ["fail.cu"])
+    monkeypatch.setattr(cuda_lib, "library_path", lambda: path + "2")
+    with pytest.raises(RuntimeError, match="fail.cu"):
+        cuda_lib.build()
+    assert not os.path.exists(path + "2")
 
 
 def test_wrappers_reject_bad_input():

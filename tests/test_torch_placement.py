@@ -15,6 +15,7 @@ from hgtpu.db.catalog import VT_INSERTION
 from hgtpu.sim import simulate_reads
 from hgtpu_torch.align import GeneAligner
 from tests.synth import make_gene_msa
+from tests.test_torch_db import carried
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -54,7 +55,7 @@ def test_place_buffers_bit_equal(genes, which, scan):
     if which == "indel":
         assert (gene.var_type == VT_INSERTION).any()
     ja = JaxAligner(gene, place_scan=scan, device_verify="off")
-    ta = GeneAligner(gene, place_scan=scan, device="cpu")
+    ta = GeneAligner(carried(gene), place_scan=scan, device="cpu")
     assert ta._scan_shifts == ja._scan_shifts
     for err in (0.0, 3.0):
         seqs = _seqs(gene, err)

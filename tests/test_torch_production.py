@@ -24,6 +24,7 @@ from hgtpu_torch.parallel import production
 from hgtpu_torch.pipeline import type_reads
 from hgtpu_torch.pipeline.genotype import _take_device_path
 from hgtpu_torch.typer.engine import TypingOptions
+from tests.test_torch_db import carried
 from tests.test_torch_e2e_passes import indel_ref, truths  # noqa: F401
 
 
@@ -62,12 +63,14 @@ def assert_host_contract(dev, host, alleles):
 
 
 def three_ways(ref, R1, R2, **kw):
-    """(port production, hgtpu production, port host) results."""
-    dev = type_reads(ref, R1, R2,
+    """(port production, hgtpu production, port host) results; the port
+    types hgtpu's gene ``ref`` carried across."""
+    gene = carried(ref)
+    dev = type_reads(gene, R1, R2,
                      TypingOptions(device_typing="on", **kw), device="cpu")
     want = jax_type_reads(ref, R1, R2,
                           JaxOptions(device_typing="on", **kw))
-    host = type_reads(ref, R1, R2,
+    host = type_reads(gene, R1, R2,
                       TypingOptions(device_typing="off", **kw), device="cpu")
     return dev, want, host
 
@@ -140,7 +143,7 @@ def calls(monkeypatch):
 ])
 def test_routing(indel_ref, calls, opts, paired, production_path):  # noqa: F811
     R1, R2 = pairs(indel_ref, truths(indel_ref)[:1], 0.0, 5, 12)
-    res = type_reads(indel_ref, R1, R2 if paired else None,
+    res = type_reads(carried(indel_ref), R1, R2 if paired else None,
                      TypingOptions(simulation=True, **opts), device="cpu")
     assert res.num_pairs > 0
     assert len(calls) == int(production_path)
@@ -181,12 +184,13 @@ def test_rescued_fragment_rows_equals_hgtpu(indel_ref):  # noqa: F811
     idx = np.arange(0, len(R1), 3)
     pile = np.zeros((len(indel_ref.backbone), 6), np.int32)
     outs = []
-    for mod, opts, kw in (
-            (production, TypingOptions(simulation=True), dict(device="cpu")),
-            (jax_production, JaxOptions(simulation=True), {})):
-        by_pair = mod._align_punts(indel_ref, opts, R1, R2, idx, None, **kw)
-        mp = mod._merge_pileup(indel_ref, opts, pile, by_pair, idx)
-        outs.append(mod._rescued_fragment_rows(indel_ref, opts, R1, by_pair,
+    for mod, gene, opts, kw in (
+            (production, carried(indel_ref), TypingOptions(simulation=True),
+             dict(device="cpu")),
+            (jax_production, indel_ref, JaxOptions(simulation=True), {})):
+        by_pair = mod._align_punts(gene, opts, R1, R2, idx, None, **kw)
+        mp = mod._merge_pileup(gene, opts, pile, by_pair, idx)
+        outs.append(mod._rescued_fragment_rows(gene, opts, R1, by_pair,
                                                idx, mp, **kw))
     (*got, got_novel), (*want, want_novel) = outs
     assert got[4] == want[4] > 0

@@ -12,6 +12,7 @@ import torch
 
 from hgtpu.db import build_gene_ref
 from tests.synth import make_hla_scale_msa
+from tests.test_torch_db import carried
 from tests.test_torch_e2e_passes import indel_ref, truths  # noqa: F401
 from tests.test_torch_production import (assert_host_contract,
                                          assert_same_result, pairs,
@@ -50,6 +51,6 @@ def test_production_exact_at_scale():
     assert_same_result(dev, want)
     assert_host_contract(dev, host, pair)
     # the scale panel spells in tiers (its hypothesis ceiling is above 8)
-    st = _shared_sharded_typer(ref, TypingOptions(), torch.device("cpu"),
+    st = _shared_sharded_typer(carried(ref), TypingOptions(), torch.device("cpu"),
                                100)
     assert st._fused_H > 8

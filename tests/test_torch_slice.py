@@ -20,6 +20,7 @@ from hgtpu.typer.engine import TypingOptions as JaxOptions
 from hgtpu_torch.pipeline import simulation_sweep, type_reads
 from hgtpu_torch.typer.engine import TypingOptions
 from tests.synth import make_gene_msa
+from tests.test_torch_db import carried
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -68,7 +69,7 @@ def test_type_reads_equals_hgtpu(generef, read_sets, err, paired,
     kw = dict(simulation=True, device_counting=device_counting,
               allow_discordant=not paired)
     want = jax_type_reads(generef, reads_1, reads_2, JaxOptions(**kw))
-    got = type_reads(generef, reads_1, reads_2, TypingOptions(**kw),
+    got = type_reads(carried(generef), reads_1, reads_2, TypingOptions(**kw),
                      device="cpu")
     assert got.prob and got.num_pairs > 0
     assert_same_result(got, want)
@@ -78,19 +79,21 @@ def test_type_reads_equals_hgtpu(generef, read_sets, err, paired,
 
 
 def test_shared_state_does_not_collide(generef, read_sets):
-    """hgtpu caches its jax DeviceCounter on the GeneRef; the port keeps
-    its own per-device counters under its own key."""
+    """hgtpu caches its jax DeviceCounter on its GeneRef; the port keeps
+    its own per-device counters under its own key, on its own GeneRef."""
     from hgtpu.typer.device_count import DeviceCounter as JaxCounter
     from hgtpu.typer.engine import shared_device_counter as jax_shared
     from hgtpu_torch.typer.device_count import DeviceCounter
     from hgtpu_torch.typer.engine import shared_device_counter
 
     assert isinstance(jax_shared(generef), JaxCounter)
-    dc = shared_device_counter(generef, "cpu")
+    gene = carried(generef)
+    dc = shared_device_counter(gene, "cpu")
     assert isinstance(dc, DeviceCounter)
-    assert shared_device_counter(generef, "cpu") is dc
-    assert generef.__dict__["_typer_shared_torch"] is not \
-        generef.__dict__["_typer_shared"]
+    assert shared_device_counter(gene, "cpu") is dc
+    assert "_typer_shared_torch" in gene.__dict__
+    assert "_typer_shared" not in gene.__dict__
+    assert "_typer_shared_torch" not in generef.__dict__
 
 
 @pytest.mark.parametrize("opts,match", [
@@ -100,13 +103,14 @@ def test_shared_state_does_not_collide(generef, read_sets):
 def test_unported_options_raise(generef, read_sets, opts, match):
     reads_1, reads_2 = read_sets[0.0]
     with pytest.raises(NotImplementedError, match=match):
-        type_reads(generef, reads_1[:4], reads_2[:4],
+        type_reads(carried(generef), reads_1[:4], reads_2[:4],
                    TypingOptions(simulation=True, **opts), device="cpu")
 
 
 def test_simulation_sweep_calls_truth(generef):
     n_passed, results = simulation_sweep(
-        generef, test_size=2, seed=1, simulate_interval=10, device="cpu")
+        carried(generef), test_size=2, seed=1, simulate_interval=10,
+        device="cpu")
     assert n_passed == 2
     assert all(np.isfinite([p for _, p in res.prob]).all()
                for _, res in results)
