@@ -9,10 +9,14 @@ hgtpu_torch.pipeline.type_reads and checks them phase by phase:
   * the production path ("auto" on CUDA, the main path): the place pass
     on kernel K1, the spell pass, the host pileup merge, the count pass
     (pileup gate, compatibility products, class dedup), the host
-    rescue of the punt mask with the device fold on kernel K2, the
-    staged EM;
-  * the host-engine path (device_typing="off"): placement on K1, host
-    verify, haplotypes, the device fold on K2, the staged EM.
+    rescue of the punt mask (realignment with device verify: the banded
+    DP kernel scores the rank-0 proposals) with the device fold on
+    kernel K2, the staged EM;
+  * the host-engine path (device_typing="off"): placement on K1, device
+    verify on the banded DP kernel beside the native verifier,
+    haplotypes, the device fold on K2, the staged EM;
+  * the pure-device programs: hgtpu_torch.entry.dryrun_multichip(1) and
+    ShardedTyper.call_pairs (ungated count, device EM).
 
 Phases:
 
@@ -29,8 +33,9 @@ Phases:
              Exact at m = 1024 too; place_scan_batch buffers on the card
              vs the CPU
   warm-up    one run of each path and gene on the card, recording every
-             K1 and K2 call (the place pass, the fused spell, the
-             rescue's realignment, both folds) and compat_mxu's products
+             K1, K2 and DP call (the place pass, the fused spell, the
+             rescue's realignment, both folds, device verify) and
+             compat_mxu's products
   K1, K2     every distinct operand shape recorded in the warm-ups,
              kernel vs plain on the recorded operands, exact (K1) and
              bitwise (K2: both variants, the slab kernel at k2_plan's
@@ -39,6 +44,11 @@ Phases:
              K2 timed at the largest H x K and at the production rescue's
              fold, in turns (plain, slab, wide, slab, wide, plain), and
              the slab kernel with K = 0 (staging, tile walk and stores)
+  DP         the banded DP kernel (device verify) against its plain
+             version, bitwise (cost and over), at every (E, W) the
+             warm-ups gave it, and on a synthetic batch of the insertion
+             test gene at a 30-edit budget, which sets over; kernel and
+             plain timed at the host path's and the rescue's shapes
   compat     compat_mxu's product at prod-scale's shape (bf16 operands,
              float32 output) equals the float64 product: exact counts
   toy/scale  host-engine path: 60-allele gene (4 truths) and the
@@ -51,11 +61,17 @@ Phases:
              run, num_reads, num_pairs and counts exact, prob within 1e-9
              with the same ranking); truths on top; warm wall, reads/s,
              punt count, TRACE stages
+  dryrun     dryrun_multichip(1) on the card (production path and
+             call_allele on the tiny gene, truth called), and
+             ShardedTyper(em_iters=300).call_pairs on the scale panel
+             (tests/test_hla_scale.py's indel-carrying truth): truth
+             called, totals, n_used and punt equal to the port's CPU run
   proof      launch counts of each path's runs (counts set to 0 just
              before the path, read just after): K1 > 0 on both paths, K2
              > 0 on the host path and on prod-scale whenever its rescue
-             reached the fold; neither jax nor hgtpu (the JAX package)
-             ever imported
+             reached the fold, the DP > 0 on the host path and in the
+             prod-scale rescue; the native verifier loaded; neither jax
+             nor hgtpu (the JAX package) ever imported
 
 Every failure raises: nothing is caught and carried on, and there is no
 CPU fallback.  Exits non-zero without a CUDA device or without the repo
@@ -79,7 +95,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 STAGES = ("device.place", "device.spell", "device.countB", "device.rescue",
-          "device.merge", "type.em")
+          "device.merge", "rescue.align", "verify.device_dp", "type.em")
 
 
 def log(*a):
@@ -226,6 +242,163 @@ def check_truths(res, truths, what):
                              % (what, res.prob[0][0]))
 
 
+def dp_phase(seen_dp, timer):
+    """The banded DP kernel against its plain version, bitwise, at every
+    recorded (E, W) and on a synthetic batch that sets over; then both
+    timed (timer = cuda_ms) at the host path's and the prod rescue's
+    largest shapes.  Returns the kernel's JSON records."""
+    import numpy as np
+    import torch
+    from synth import make_gene_msa
+    from hgtpu_torch.db import build_gene_ref
+    from hgtpu_torch.ops.banded_dp import (D, NI, NITER, BandedDPTables,
+                                           banded_costs, banded_costs_plain)
+    from hgtpu_torch.utils.dna import encode_seq
+
+    def check(args, what):
+        got = banded_costs(*args)
+        want = banded_costs_plain(*args)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                             want[1])):
+            bad = int((got[0] != want[0]).sum() + (got[1] != want[1]).sum())
+            raise AssertionError("DP kernel != plain at %s (%d entries "
+                                 "differ)" % (what, bad))
+        return want
+
+    for (E, W, P), (args, runs) in sorted(seen_dp.items()):
+        cost, over = check(args, "E=%d W=%d" % (E, W))
+        log("DP: E=%d W=%d P=%d (runs %s): kernel bitwise equal (cost and "
+            "over); %d within the budget, %d over"
+            % (E, W, P, ",".join(sorted(runs)), int((cost <= 2).sum()),
+               int(over.sum())))
+    # a synthetic batch: the insertion test gene, allele windows with
+    # substitutions at drifted starts, junk reads, a 30-edit budget that
+    # spreads the states to both band edges
+    spec = make_gene_msa(seed=15, n_alleles=24, length=1600, n_ins=14)
+    gene, _ = build_gene_ref("A", spec["names"], spec["rows"],
+                             spec["ref_allele"], min_var_freq=8.0)
+    dev = next(iter(seen_dp.values()))[0][0].device
+    tab = BandedDPTables(gene, dev)
+    rng = np.random.default_rng(17)
+    E, W = 4096, 128
+    reads = rng.integers(0, 5, (E, W)).astype(np.int8)
+    lens = rng.integers(40, W + 1, E).astype(np.int32)
+    starts = rng.integers(-20, len(gene.backbone), E).astype(np.int32)
+    for e in range(0, E, 2):
+        a = gene.allele_seq(gene.allele_names[int(rng.integers(0, 24))])
+        s0 = int(rng.integers(0, len(a) - W))
+        r = encode_seq(a[s0:s0 + int(lens[e])])
+        reads[e, :len(r)] = r
+        starts[e] = s0 + int(rng.integers(-12, 13))
+    args = (tab.table, *(torch.from_numpy(x).to(dev)
+                         for x in (reads, lens, starts)),
+            tab.P, 30, tab.del_lens, tab.ins_lens)
+    cost, over = check(args, "the synthetic batch")
+    if not (over.any() and (~over).any() and (cost <= 2).any()):
+        raise AssertionError("DP: the synthetic batch did not reach both "
+                             "band edges")
+    log("DP: synthetic E=%d W=%d, 30-edit budget: kernel bitwise equal; "
+        "%d over, %d finite" % (E, W, int(over.sum()),
+                                int((cost < 1 << 20).sum())))
+
+    records = []
+    for where, run in (("host path", "scale"), ("prod rescue",
+                                                 "prod-scale")):
+        key = max((k for k, v in seen_dp.items() if run in v[1]),
+                  key=lambda k: k[0], default=None)
+        if key is None:
+            continue
+        args = seen_dp[key][0]
+        table, reads_d, lens_d = args[:3]
+        E, W = reads_d.shape
+        turns = {"plain": [], "kernel": []}
+        for k in ("plain", "kernel", "kernel", "plain"):
+            turns[k].append(
+                timer(lambda: banded_costs(*args)) if k == "kernel"
+                else timer(lambda: banded_costs_plain(*args), iters=1,
+                           warmup=1))
+        ms = {k: sum(v) / len(v) for k, v in turns.items()}
+        # the work this run's data needs: the kernel walks each entry's
+        # read positions 0..min(len, W); per position and diagonal,
+        # (NITER + 1) * (n_del + 2) relaxations, NI * n_ins catalog
+        # insertions, 2 novel insertions, the consume and the pending
+        # merge, each a select and a min, on the CUDA cores (int32; the
+        # float32 CUDA-core peak is the yardstick)
+        positions = int((torch.minimum(lens_d, torch.full_like(lens_d, W))
+                         + 1).clamp(min=0).sum())
+        n_min = (NITER + 1) * (len(args[6]) + 2) + NI * len(args[7]) + 4
+        ops = 2 * D * positions * n_min
+        nbytes = E * W + 8 * E + table.numel() * 4 + 5 * E
+        b_ms, b_by = bound_ms(nbytes, ops, PEAK_F32_S)
+        log("DP: %s E=%d W=%d: kernel %.4f ms, plain %.4f ms; bound %.4f "
+            "ms (%s: %.3g integer ops, %d bytes), kernel at %.1f %% of it; "
+            "turns %s" % (where, E, W, ms["kernel"], ms["plain"], b_ms, b_by,
+                          ops, nbytes, 100 * b_ms / ms["kernel"],
+                          {k: [round(x, 4) for x in v]
+                           for k, v in turns.items()}))
+        records.append(dict(
+            name="banded_dp", route="cuda",
+            source="hgtpu_torch/csrc/banded_dp.cu",
+            replaces="hgtpu/ops/banded_dp.py:140", max_abs_err=0.0,
+            ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=b_ms,
+            bound_by=b_by, library_ms=None,
+            library="none: no torch call computes the banded DP",
+            shape="E=%d W=%d P=%d (%s)" % (E, W, key[2], where),
+            turns_ms=turns["kernel"], shapes_checked=len(seen_dp) + 1,
+            hand_kernel="no Pallas counterpart (hgtpu's lax.scan)"))
+    return records
+
+
+def dryrun_phase(big, dev):
+    """dryrun_multichip(1) on the card, and the pure-device EM program at
+    the scale panel (tests/test_hla_scale.py's sharded test on one
+    device) against the port's CPU run."""
+    import numpy as np
+    import torch
+    from hgtpu_torch.db.catalog import VT_SINGLE
+    from hgtpu_torch.entry import dryrun_multichip
+    from hgtpu_torch.parallel.e2e import ShardedTyper
+    from hgtpu_torch.sim import simulate_reads
+
+    t0 = time.perf_counter()
+    dryrun_multichip(1, device=dev)
+    torch.cuda.synchronize()
+    t_dry = time.perf_counter() - t0
+    snp = big.var_type == VT_SINGLE
+    truth = next(n for i, n in enumerate(big.allele_names)
+                 if big.links[~snp, i].any() and big.links[snp, i].any())
+    r1, r2, _ = simulate_reads(big, [truth], simulate_interval=8, seed=3)
+    outs, walls = {}, {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        typer = ShardedTyper(big, d, em_iters=300, max_ht_vars=32,
+                             max_indel_cand=8)
+        c1 = typer.encode([r.seq for r in r1])
+        c2 = typer.encode([r.seq for r in r2])
+        t0 = time.perf_counter()
+        outs[where] = typer.call_pairs(c1, c2)
+        walls[where] = time.perf_counter() - t0
+    prob, totals, n_used, punt = outs["card"]
+    top = int(np.argmax(prob))
+    if big.allele_names[top] != truth or prob[top] <= 0.999:
+        raise AssertionError("dryrun: call_pairs called %s at %.6f, truth "
+                             "%s" % (big.allele_names[top], prob[top],
+                                     truth))
+    if punt.sum() > 0.35 * len(r1) or n_used <= 0.6 * len(r1):
+        raise AssertionError("dryrun: %d punts, %g used of %d pairs"
+                             % (punt.sum(), n_used, len(r1)))
+    c_prob, c_totals, c_used, c_punt = outs["cpu"]
+    if not (np.array_equal(totals, c_totals) and n_used == c_used
+            and np.array_equal(punt, c_punt)):
+        raise AssertionError("dryrun: call_pairs on the card differs from "
+                             "the CPU run (totals, n_used or punt)")
+    log("dryrun: dryrun_multichip(1) passed (%.2f s); call_pairs at the "
+        "scale panel, %d pairs: %s at %.6f (truth), n_used %g, punts %d; "
+        "totals, n_used and punt equal to the CPU run, prob max diff %.3g; "
+        "wall card %.2f s, CPU %.2f s"
+        % (t_dry, len(r1), truth, prob[top], n_used, int(punt.sum()),
+           float(np.abs(prob - c_prob).max()), walls["card"], walls["cpu"]))
+
+
 def main():
     import numpy as np
     import torch
@@ -273,7 +446,9 @@ def main():
 
     from hgtpu_torch.utils.trace import TRACE
     from hgtpu_torch.align import GeneAligner
+    from hgtpu_torch.ops import banded_dp as tdp
     from hgtpu_torch.ops import placement as tplace
+    from hgtpu_torch.ops.banded_dp import banded_costs, banded_costs_plain
     from hgtpu_torch.ops.compat_kernel import (and_reduce, and_reduce_plain,
                                                and_reduce_slab,
                                                and_reduce_wide, k2_plan)
@@ -386,8 +561,21 @@ def main():
     n_toy = len(t1) + len(t2)
     toy_gpu = GeneAligner(toy, device=dev)
     seen = {"placement_scores": {}, "and_reduce": {}}
+    seen_dp = {}        # (E, W, P) -> (args, runs)
     gemms = []
     run_name = [None]
+
+    def dp_spy(self, reads, lens, starts, max_novel=2):
+        # BandedDPTables.costs' operands as it hands them to banded_costs
+        key = tuple(reads.shape) + (self.P,)
+        if key not in seen_dp:
+            seen_dp[key] = ((self.table,) + tuple(
+                torch.from_numpy(np.ascontiguousarray(x, dt)).to(dev)
+                for x, dt in ((reads, np.int8), (lens, np.int32),
+                              (starts, np.int32)))
+                + (self.P, max_novel, self.del_lens, self.ins_lens), set())
+        seen_dp[key][1].add(run_name[0])
+        return real_costs(self, reads, lens, starts, max_novel)
 
     def recorder(name, real):
         # K2's table is kept as the path holds it (a row-padded view, the
@@ -409,6 +597,8 @@ def main():
     tplace.placement_scores = recorder("placement_scores", placement_scores)
     device_count.and_reduce = recorder("and_reduce", and_reduce)
     e2e.count_product = gemm_spy
+    real_costs = tdp.BandedDPTables.costs
+    tdp.BandedDPTables.costs = dp_spy
     try:
         for name, gene, r1, r2, opts, aligner in (
                 ("scale", big, b1, b2, host_opts, big_gpu),
@@ -427,6 +617,7 @@ def main():
         tplace.placement_scores = placement_scores
         device_count.and_reduce = and_reduce
         e2e.count_product = real_gemm
+        tdp.BandedDPTables.costs = real_costs
 
     def runs_of(name, run):
         return [k for k, v in seen[name].items() if run in v[2]]
@@ -438,6 +629,10 @@ def main():
                     or (run == "prod-scale" and warm_fold)):
                 raise AssertionError("the %s warm-up run never called %s"
                                      % (run, name))
+    for run in ("scale", "toy", "prod-scale"):
+        if not any(run in v[1] for v in seen_dp.values()):
+            raise AssertionError("the %s warm-up run never called the "
+                                 "banded DP" % run)
 
     # every K1 shape the paths gave the kernel, held against the plain
     # version on the recorded operands
@@ -577,6 +772,10 @@ def main():
         % (t_w, t_wp))
     del seen, links_w, vars_w, got
 
+    # ---- the banded DP (device verify) ---- #
+    kernels.extend(dp_phase(seen_dp, cuda_ms))
+    del seen_dp
+
     # ---- compat_mxu's product at prod-scale's shape: bf16 operands,
     # float32 output, equal to the float64 product (exact counts) ---- #
     x_g, links_g = max(gemms, key=lambda xl: xl[0].shape[0])
@@ -604,12 +803,14 @@ def main():
     def counts():
         return {"placement_scores": placement_scores.launches,
                 "and_reduce_slab": and_reduce_slab.launches,
-                "and_reduce_wide": and_reduce_wide.launches}
+                "and_reduce_wide": and_reduce_wide.launches,
+                "banded_dp": banded_costs.launches}
 
     def reset():
         placement_scores.launches = 0
         and_reduce_slab.launches = 0
         and_reduce_wide.launches = 0
+        banded_costs.launches = 0
 
     # ---- host-engine path: counts cover exactly these two runs ---- #
     reset()
@@ -715,14 +916,25 @@ def main():
                 if s in stages}))
         if name == "prod-scale":
             scale_fold = "rescue.fold" in stages
+            scale_dp = stages.get("verify.device_dp", {}).get("n", 0)
 
-    # ---- 8. proof of path ---- #
+    # ---- 8. the pure-device programs ---- #
+    dryrun_phase(big, dev)
+
+    # ---- 9. proof of path ---- #
     for rec in kernels + off_path:
         rec["launches"] = prod_launches[rec["name"]]
-    for name in ("placement_scores", "and_reduce_slab"):
+    for name in ("placement_scores", "and_reduce_slab", "banded_dp"):
         if host_launches[name] <= 0:
             raise AssertionError("%s never launched on the host-engine path"
                                  % name)
+    if scale_launches["banded_dp"] <= 0 or not scale_dp:
+        raise AssertionError("the banded DP never launched in the "
+                             "prod-scale rescue")
+    if big_gpu.native is None or big_gpu._dp_tables is None \
+            or toy_gpu._dp_tables is None:
+        raise AssertionError("device verify is off on the card: the native "
+                             "verifier is not loaded")
     if toy_launches["placement_scores"] <= 0 \
             or scale_launches["placement_scores"] <= 0:
         raise AssertionError("K1 did not launch in both production runs")
@@ -736,10 +948,10 @@ def main():
     if "hgtpu" in sys.modules:
         raise AssertionError("the JAX package hgtpu was imported")
     log("proof: launches host path %s, production path %s (prod-scale %s; "
-        "rescue reached the fold: %s); jax imported: no; hgtpu imported: "
-        "no; native verifier loaded: %s"
-        % (host_launches, prod_launches, scale_launches, scale_fold,
-           big_gpu.native is not None))
+        "rescue reached the fold: %s; device verify in the rescue: %d "
+        "calls); jax imported: no; hgtpu imported: no; native verifier "
+        "loaded: yes" % (host_launches, prod_launches, scale_launches,
+                         scale_fold, scale_dp))
     log("wall: chip_smoke %.1f s" % (time.perf_counter() - t_start))
 
     order = ("name", "route", "source", "replaces", "launches",

@@ -104,14 +104,6 @@ class GeneAligner:
         self._use_scan = place_scan != "off" and not leftmost
         self._SCAN_KMM = 16
         self._scan_dev = None   # lazy (match_flat, bb_pad) device tables
-        # device verify (the banded variant-aware DP) is not ported yet:
-        # "auto" means off, as hgtpu decides off a local TPU
-        if device_verify == "on":
-            raise NotImplementedError(
-                "device_verify='on' needs ops/banded_dp.py, which is not "
-                "ported yet (ROADMAP item 10)")
-        if device_verify not in ("auto", "off"):
-            raise ValueError("device_verify must be auto, on or off")
         self.native = None
         if use_native in ("auto", "on"):
             from .native_verify import NativeVerifier, native_available
@@ -121,6 +113,33 @@ class GeneAligner:
             elif use_native == "on":
                 raise RuntimeError("native verifier requested but "
                                    "native/libhgtpu_native.so is missing")
+        # optional device verify backend: the banded variant-aware DP
+        # (ops.banded_dp, a CUDA kernel on the card) scores every rank-0
+        # proposal on the device; the native DFS then extracts the edit
+        # script for each read's winning proposal only.  Entries the band
+        # can't represent (overflow flag) and winners whose DFS cost
+        # diverges (haplotype-window constraint) fall back to the full
+        # host path, so results are bit-identical to device_verify="off".
+        # hgtpu's "auto" takes it on a locally attached device (dispatch
+        # round trip under 2 ms), which a CUDA card on its own bus is:
+        # "auto" is on for CUDA and off on the CPU, as hgtpu's rule is off
+        # a TPU.  As in hgtpu the DP runs only beside the native verifier
+        # and not in leftmost mode, so "auto" also asks for the native
+        # verifier, and "on" without it raises rather than skip the DP.
+        if device_verify not in ("auto", "on", "off"):
+            raise ValueError("device_verify must be auto, on or off")
+        if device_verify == "auto":
+            device_verify = "on" if (self.device.type == "cuda"
+                                     and self.native is not None) else "off"
+        self._dp_tables = None
+        if device_verify == "on":
+            if self.native is None:
+                raise RuntimeError(
+                    "device_verify='on' needs the native verifier "
+                    "(make -C native): it extracts the DP winners' edit "
+                    "scripts")
+            from ..ops.banded_dp import BandedDPTables
+            self._dp_tables = BandedDPTables(gene, self.device)
 
     def align_batch(self, read_ids, seqs, mate: str):
         """Align reads; returns list[ReadAln | None].
@@ -229,9 +248,29 @@ class GeneAligner:
                 states.append((gi, pad, self._chunk_state(
                     chunk_ids, chunk, groups[gi][2], placed)))
 
+        # batched device verify: ONE banded-DP launch covering the rank-0
+        # proposals of every chunk of every group, one fetch of its result
+        start_rank = 0
+        if (self._dp_tables is not None and not self.leftmost
+                and self.native is not None):
+            per_chunk = [self._rank_entries(st, 0) for _g, _p, st in states]
+            sizes = [len(e[2]) if e else 0 for e in per_chunk]
+            if sum(sizes):
+                cost, over = self._dp_costs(
+                    [r for e in per_chunk if e
+                     for r in e[0](range(len(e[2])))],
+                    [s for e in per_chunk if e for s in e[1]])
+                at = 0
+                for e, n, (_gi, _pad, st) in zip(per_chunk, sizes, states):
+                    if not n:
+                        continue
+                    self._apply_dp(st, e, cost[at:at + n], over[at:at + n])
+                    at += n
+            start_rank = 1  # rank-0 handled; leftovers retry natively
+
         out = [[] for _ in groups]
         for gi, pad, st in states:
-            self._verify_pending(st)
+            self._verify_pending(st, start_rank)
             res = self._chunk_output(st)
             out[gi].extend(res[: len(res) - pad] if pad else res)
         return out
@@ -566,13 +605,15 @@ class GeneAligner:
                 break
         return np.minimum(lb, cap)
 
-    def _verify_pending(self, st):
+    def _verify_pending(self, st, start_rank):
         """Pass 2: native batch verification (threads in C++), primary
-        orientation first; unresolved reads retry the other orientation."""
+        orientation first; unresolved reads retry the other orientation.
+        start_rank=1 when rank 0 was already handled by the batched
+        device DP."""
         if self.native is None or not st["pending"]:
             return
         results = st["results"]
-        for rank in range(2):
+        for rank in range(start_rank, 2):
             if not st["pending"]:
                 break
             entries = self._rank_entries(st, rank)
@@ -643,10 +684,16 @@ class GeneAligner:
             out.append(aln)
         return out
 
-    def _resolve_entries(self, flat_reads, flat_starts, flat_meta, results):
+    def _resolve_entries(self, flat_reads, flat_starts, flat_meta, results,
+                         clear=None):
         """Run the native verifier over proposal entries and install each
         read's best (cost, then proposal-order; leftmost start in STR
-        mode) result into `results`."""
+        mode) result into `results`.  `clear` lists read rows whose
+        previous result must be discarded first (device-verify
+        fallback)."""
+        if clear:
+            for i in clear:
+                results[i] = None
         if not flat_reads:
             return
         with TRACE.stage("verify.native"):
@@ -769,6 +816,70 @@ class GeneAligner:
             _i, o_rc, cf, slen = flat_meta[idx]
             results[i] = ((c, entry_ops, int(flat_starts[idx]), cf, slen),
                           [], o_rc)
+
+    def _dp_costs(self, flat_reads, flat_starts):
+        """One banded-DP launch over proposal entries, W padded to a
+        multiple of 32 as hgtpu pads it.  hgtpu also pads E to a power of
+        two for XLA's compile cache; torch compiles nothing, and no
+        entry's result depends on another's, so E stays as it is.
+        Returns host (cost, over) arrays."""
+        E = len(flat_reads)
+        W = max(len(r) for r in flat_reads)
+        W = ((W + 31) // 32) * 32
+        reads = _pad_codes_2d(flat_reads, E, W, fill=4)
+        lens = np.fromiter((len(r) for r in flat_reads), np.int32, E)
+        starts = np.asarray(flat_starts, np.int32)
+        with TRACE.stage("verify.device_dp"):
+            cost, over = self._dp_tables.costs(
+                reads, lens, starts, max_novel=self.num_editdist)
+            # the fetch waits for the kernel: keep it inside the stage
+            cost = cost.cpu().numpy()
+            over = over.cpu().numpy()
+        return cost, over
+
+    def _apply_dp(self, st, entries, cost, over):
+        """Install each read's first-minimal DP winner via host
+        edit-script extraction; reads whose winner overflowed the band
+        or whose DFS cost diverges (haplotype-window constraint) redo
+        the full proposal set, so results stay bit-identical to the
+        host-only path."""
+        get_codes, flat_starts, flat_meta = entries[:3]
+        results = st["results"]
+        over_reads = set()
+        winner = {}
+        for idx, (i, _o_rc, _cf, _slen) in enumerate(flat_meta):
+            if over[idx]:
+                over_reads.add(i)
+                continue
+            c = int(cost[idx])
+            if c > self.num_editdist:
+                continue
+            if i not in winner or c < winner[i][0]:
+                winner[i] = (c, idx)
+        sel_k, sel_s, sel_m = [], [], []
+        dp_expect = {}
+        for i, (c, idx) in winner.items():
+            if i in over_reads:
+                continue
+            sel_k.append(idx)
+            sel_s.append(flat_starts[idx])
+            sel_m.append(flat_meta[idx])
+            dp_expect[i] = c
+        if sel_k:
+            self._resolve_entries(get_codes(sel_k), sel_s, sel_m, results)
+        redo = set(over_reads)
+        for i, c_dp in dp_expect.items():
+            r = results[i]
+            if r is None or r[0][0] != c_dp:
+                redo.add(i)
+        if redo:
+            rk = [k for k, m_ in enumerate(flat_meta) if m_[0] in redo]
+            self._resolve_entries(get_codes(rk),
+                                  [flat_starts[k] for k in rk],
+                                  [flat_meta[k] for k in rk], results,
+                                  clear=redo)
+        st["pending"] = [po for po in st["pending"]
+                         if results[po[0]] is None]
 
     def _lb_keep(self, flat_reads, flat_starts):
         """Boolean keep-mask over proposal entries: False entries provably

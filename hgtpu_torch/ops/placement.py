@@ -84,6 +84,19 @@ def _top_diagonals(scores: torch.Tensor, k: int):
     return top >> _POS_BITS, (1 << _POS_BITS) - 1 - (top & ((1 << _POS_BITS) - 1))
 
 
+def place_batch(pwm_ext: torch.Tensor, reads: torch.Tensor,
+                top_k: int = 4):
+    """Score every start diagonal for every read.
+
+    pwm_ext: [P + m, 5] backbone PWM padded with m zero rows.
+    reads:   [N, m] int8 codes.
+    Returns (scores [N, top_k] float32, positions [N, top_k] int32), as
+    hgtpu's lax.top_k returns them."""
+    top_scores, top_pos = _top_diagonals(correlate_scores(pwm_ext, reads),
+                                         top_k)
+    return top_scores.to(torch.float32), top_pos.to(torch.int32)
+
+
 def _fetch_dtype(pwm_ext, m):
     """int16 when every packed value (scores <= m, window indices < P1,
     read offsets <= m) fits; int32 for very long backbones."""
@@ -173,3 +186,51 @@ def place_scan_batch(pwm_ext: torch.Tensor, match_flat: torch.Tensor,
     return torch.cat(
         [top_scores.to(dt), top_pos.to(dt), first.to(dt), last.to(dt),
          mm_pos.to(dt), mm_cnt[:, None].to(dt)], dim=1)
+
+
+def place_with_orientation(pwm, fwd: np.ndarray, rc: np.ndarray,
+                           top_k: int = 4, block: bool = True,
+                           ext_cache=None, device=None):
+    """Place both orientations.
+
+    With block=True returns (scores_f, pos_f, scores_r, pos_r) each
+    [N, top_k] plus use_rc [N].  With block=False returns the device
+    (scores, positions) tensors without waiting for them — resolve later
+    with `resolve_placement` so host work overlaps the device queue.
+    `ext_cache` (owned by the caller, keyed by read length) holds the
+    zero-padded device PWM — the cache must be per-PWM, never global.
+    """
+    from .. import resolve_device
+    from ..utils.trace import TRACE
+
+    dev = resolve_device(device)
+    m = fwd.shape[1]
+    _ext_cache = ext_cache if ext_cache is not None else {}
+    pwm_ext = _ext_cache.get(m)
+    if pwm_ext is None:
+        # zero padding on BOTH sides: window index p corresponds to read
+        # start p - m, so overhanging (soft-clippable) placements at both
+        # backbone ends score their overlapping parts
+        pwm_ext = torch.from_numpy(
+            np.concatenate([np.zeros((m, 5), np.float32), pwm,
+                            np.zeros((m, 5), np.float32)], axis=0)).to(dev)
+        if len(_ext_cache) > 64:
+            _ext_cache.clear()
+        _ext_cache[m] = pwm_ext
+    both = np.concatenate([fwd, rc], axis=0)
+    # launched K1 work: [2N, m*5] x [P1, m*5]^T
+    P1 = pwm_ext.shape[0] - m + 1
+    TRACE.count("flops.placement", 2.0 * both.shape[0] * (m * 5) * P1)
+    handles = place_batch(pwm_ext, torch.from_numpy(
+        np.ascontiguousarray(both, np.int8)).to(pwm_ext.device), top_k=top_k)
+    if not block:
+        return handles
+    return resolve_placement(handles, fwd.shape[0], m)
+
+
+def resolve_placement(handles, n, m):
+    s, p = handles
+    s = s.cpu().numpy()
+    p = p.cpu().numpy() - m   # window index -> read start (may be negative)
+    use_rc = s[n:, 0] > s[:n, 0]
+    return s[:n], p[:n], s[n:], p[n:], use_rc

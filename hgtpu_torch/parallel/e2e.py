@@ -23,6 +23,11 @@ inputs and outputs (tables first, then the reads and the state tuple):
             (``compat_mxu``), and the on-device class dedup
             (``_count_multi[(m, T)]``).
 
+Beside them, hgtpu's legacy ungated programs (``_count_single``,
+``_count_pairs``, ``_debug``: place, spell and count in one pass, no
+pileup gate) feed the staged device EM (``_em_steps``), the front door
+of ``__call__``, ``call_pairs`` and ``call_allele``.
+
 Port notes.  hgtpu's sliding row tables are kept (the tables equal
 hgtpu's array for array), but a row's entries are taken with one gather
 along the row in place of the static-shift select sweep.  uint32 words
@@ -32,6 +37,7 @@ no tie order.  Indices that XLA would clamp are clamped explicitly.
 """
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
@@ -253,20 +259,27 @@ def _row_take(rows, off, j, off_lo, off_hi, init):
 
 
 class ShardedTyper:
-    """One gene's production typing program on one torch device.
+    """One gene's typing programs on one torch device.
 
-    The front door is ``count_classes(r1[, r2])``: the place/spell pass,
-    the host pileup merge, and the pileup-gated count pass that returns
-    packed per-level equivalence classes, totals, the pileup and the punt
-    mask, for the host to merge with rescued reads and run the staged EM
-    (``parallel.production``).  The name is hgtpu's, so that a reader
-    finds the counterpart; there is one device and no shard.  hgtpu's
-    legacy ungated programs and the device EM (``em_iters``) are not
-    ported (ROADMAP item 9).
+    The production front door is ``count_classes(r1[, r2])``: the
+    place/spell pass, the host pileup merge, and the pileup-gated count
+    pass that returns packed per-level equivalence classes, totals, the
+    pileup and the punt mask, for the host to merge with rescued reads and
+    run the staged EM (``parallel.production``).
+
+    The pure-device programs (hgtpu's legacy ungated path): call the
+    object with an [N, read_len] int8 code batch (pad code 4), or
+    ``call_pairs(r1, r2)`` with two [Npair, read_len] mate batches;
+    returns (prob [A], totals [A], n_used, punt [N]): one place+spell
+    pass with K1, the ungated count, and the staged SQUAREM EM on the
+    device (``em_iters`` caps each level).  ``call_allele`` names the top
+    allele.  The name is hgtpu's, so that a reader finds the counterpart;
+    there is one device and no shard.
     """
 
     def __init__(self, gene: GeneRef, device=None, read_len: int = 100,
-                 max_novel: int = 2, min_score_frac: float = 0.9,
+                 max_novel: int = 2, em_iters: int = 1000,
+                 min_score_frac: float = 0.9,
                  max_ht_vars: int = 16, family: str = "hla",
                  max_indel_cand: int = MAX_INDEL_CAND,
                  with_primary: bool = False, class_cap: int = 2048):
@@ -1066,9 +1079,10 @@ class ShardedTyper:
             excl = (cnt - kv[:, None]) > 0.5
             return incl & ~excl
 
-        def mate_counts(tabs, sp, rep, want_px, pre_amb):
+        def mate_counts(tabs, sp, rep, want_px, pre_amb=None):
             """Stages 2b-3 + counting masks for one spelled mate batch,
-            gated against the final pileup `rep`; pre_amb is
+            gated against the final pileup `rep`; rep None disables the
+            pileup gate (the legacy programs).  pre_amb (production) is
             mate_flags' ungated ambiguity, OR'd in so the final punt is
             a superset of the pileup exclusion.
             Returns (cnt, cnt_ex, cnt_px, passed, needs_host)."""
@@ -1077,8 +1091,13 @@ class ShardedTyper:
             Wh, Th = sp["W"], sp["T"]
             tie2 = sp["tie2"]
             n_valid_w = sp["n_valid_w"]
-            varW, n_corr, novel_resid = gate_hyp(tabs, sp, Wh, rep)
-            varT, _, _ = gate_hyp(tabs, sp, Th, rep)
+            if rep is None:
+                varW, varT = Wh["var"], Th["var"]
+                n_corr = torch.zeros(n, dtype=torch.int32, device=dev)
+                novel_resid = sp["n_novel_w"]
+            else:
+                varW, n_corr, novel_resid = gate_hyp(tabs, sp, Wh, rep)
+                varT, _, _ = gate_hyp(tabs, sp, Th, rep)
             l1, r1, v1 = Wh["l"], Wh["r"], k_smallest(Wh, varW)
             l2, r2, v2 = Th["l"], Th["r"], k_smallest(Th, varT)
 
@@ -1087,7 +1106,7 @@ class ShardedTyper:
             passed = ((sp["n_novel_w"] <= max_novel) & (n_valid_w > 0)
                       & (sp["score_w"] >= min_score_frac * nv)
                       & (n_corr <= corr_cap))
-            if is_hla:
+            if rep is not None and is_hla:
                 # deletion-plausibility misalignment heuristic
                 # (typing_core.py:1064-1077), for BOTH claimed indels
                 _rp, pile, _gt = rep
@@ -1100,7 +1119,9 @@ class ShardedTyper:
             # catalog indel the spelling does not claim: punt
             claimed, in_span = claimed_in_span(tabs, sp, l1, r1)
             ambiguous = ((in_span & ~claimed).any(1)
-                         & ((novel_resid + n_corr) > 0)) | pre_amb
+                         & ((novel_resid + n_corr) > 0))
+            if pre_amb is not None:
+                ambiguous = ambiguous | pre_amb
             needs_host = (~passed | ambiguous) & (n_valid_w > 0)
             passed = passed & ~ambiguous
 
@@ -1126,8 +1147,11 @@ class ShardedTyper:
             m = [masks[i * n:(i + 1) * n].to(torch.int32)
                  for i in range(len(groups))]
             # equal-cost tie union — but a perfect-straight read is
-            # resolved as the straight spelling alone by the host
-            tie_cnt = (tie2 & ~sp["straight_perfect"])[:, None]
+            # resolved as the straight spelling alone by the host, so the
+            # production path must not union its tie (the legacy
+            # device-EM path keeps the union)
+            tie_cnt = (tie2 if rep is None
+                       else tie2 & ~sp["straight_perfect"])[:, None]
             cnt = m[0] + m[1] * tie_cnt
             at = 2
             if staged:
@@ -1140,6 +1164,125 @@ class ShardedTyper:
             else:
                 cnt_px = cnt
             return cnt, cnt_ex, cnt_px, passed, needs_host
+
+        def mate_pipeline(tabs, reads):
+            """Legacy single-pass path (ungated), kept bit-identical for
+            the pure-device EM programs and their tests."""
+            sp = mate_spell(tabs, reads)
+            cnt, cnt_ex, _, passed, needs_host = mate_counts(
+                tabs, sp, None, False)
+            return (cnt, cnt_ex, passed, sp["use_r"], sp["W"]["l"],
+                    sp["W"]["r"], needs_host)
+
+        # hgtpu merges the shards' totals with psum over the mesh; on one
+        # device every psum is the identity, so these programs take none
+        def finish(cnt, cnt_ex, w, punt):
+            """Stage-5 epilogue: weighted full-level class totals.
+            cnt/cnt_ex [n, A] int compatibility counts, w [n] f32."""
+            w = w * (1.0 - punt.to(torch.float32))
+            mx = cnt.max(1).values
+            cls = ((cnt == mx[:, None])
+                   & (w > 0)[:, None]).to(torch.float32)
+            totals = cls.T @ w
+            n_used = w.sum()
+            return cnt, cnt_ex, w, totals, n_used, punt
+
+        def shard_single(*args):
+            tabs, reads = args[:n_tables], args[n_tables]
+            cnt, cnt_ex, passed, _, _, _, needs_host = \
+                mate_pipeline(tabs, reads)
+            p = passed[:, None].to(torch.int32)
+            return finish(cnt * p, cnt_ex * p,
+                          passed.to(torch.float32), needs_host)
+
+        def shard_pairs(*args):
+            tabs, r1, r2 = args[:n_tables], args[n_tables], \
+                args[n_tables + 1]
+            c1, ce1, ok1, o1, l1, rr1, nh1 = mate_pipeline(tabs, r1)
+            c2, ce2, ok2, o2, l2, rr2, nh2 = mate_pipeline(tabs, r2)
+            # -- 4. concordance (typing_core.py:826-852) ----------------- #
+            span = torch.maximum(rr1, rr2) - torch.minimum(l1, l2)
+            conc = (o1 != o2) & (span <= MAX_FRAG)
+            used = conc & (ok1 | ok2)
+            k1 = ok1[:, None].to(torch.int32)
+            k2 = ok2[:, None].to(torch.int32)
+            cnt = c1 * k1 + c2 * k2
+            cnt_ex = ce1 * k1 + ce2 * k2
+            punt = conc & (nh1 | nh2)
+            return finish(cnt, cnt_ex, used.to(torch.float32), punt)
+
+        def shard_debug(*args):
+            tabs, reads = args[:n_tables], args[n_tables]
+            cnt, _, passed, use_r, lefts, rights, needs_host = \
+                mate_pipeline(tabs, reads)
+            return (cnt, passed, use_r, lefts, rights, needs_host)
+
+        self._count_single = shard_single
+        self._count_pairs = shard_pairs
+        self._debug = shard_debug
+
+        # -- 6. staged SQUAREM EM over the device-resident classes -- #
+        lens_a = gene.allele_lengths()
+        inv_len_d = torch.from_numpy(np.array(
+            [1.0 / lens_a[a] for a in gene.allele_names], np.float32)).to(dev)
+        self._ones = torch.ones(A, dtype=torch.bool, device=dev)
+        self._rep_mask = torch.from_numpy(self._rep_mask_np).to(dev)
+
+        def em_shard(remove_low, use_len, cnt, w, include, restrict):
+            """One EM level (the reference's single_abundance,
+            typing_common.py:1282-1410): per-read class = argmax of the
+            compatibility counts over `include`d alleles (add_stat,
+            typing_core.py:1171-1236), intersected with the `restrict`
+            set from the previous stage (the hierarchical staging of
+            typing_core.py:1679-1789); SQUAREM with L1 diff < 1e-4,
+            `em_iters` cap, optional low-abundance pruning and length
+            normalization.  The loop's condition is read on the host
+            each iteration, as lax.while_loop evaluates it."""
+            mxv = torch.where(include[None, :], cnt,
+                              torch.full_like(cnt, -1)).max(1).values
+            cls = ((cnt == mxv[:, None]) & include[None, :]
+                   & restrict[None, :] & (w > 0)[:, None])
+            M = cls.to(torch.float32)
+            wl = w * cls.any(1)
+
+            def norm(p):
+                if use_len:
+                    p = p * inv_len_d
+                return p / p.sum().clamp(min=1e-30)
+
+            def nxt(p):
+                denom = M @ p
+                qv = torch.where(denom > 0, wl / denom.clamp(min=1e-30),
+                                 torch.zeros_like(denom))
+                return norm((M.T @ qv) * p)
+
+            sizes = M.sum(1).clamp(min=1.0)
+            p = norm(M.T @ (wl / sizes))
+            diff = torch.ones((), dtype=torch.float32, device=dev)
+            it = 0
+            while bool(diff > 1e-4) and it < em_iters:
+                p1 = nxt(p)
+                p2 = nxt(p1)
+                r = p1 - p
+                v = p2 - p1 - r
+                ssv = (v * v).sum()
+                gamma = -torch.sqrt((r * r).sum() / ssv.clamp(min=1e-30))
+                accel = (p - 2 * gamma * r + gamma * gamma * v).clamp(
+                    min=0.0)
+                p_new = torch.where(ssv > 0.0, nxt(accel), p1)
+                diff = (p_new - p).abs().sum()
+                if remove_low and it >= 10:
+                    p_new = torch.where(p_new >= p_new.max() / 10.0, p_new,
+                                        torch.zeros_like(p_new))
+                p = p_new
+                it += 1
+            if remove_low:
+                p = torch.where(p >= p.max() / 10.0, p, torch.zeros_like(p))
+            return norm(p)
+
+        self._em_steps = {
+            key: functools.partial(em_shard, *key)
+            for key in ((False, False), (True, False), (True, True))}
 
         # ------------------------------------------------------------- #
         # production class packing (pileup-gated)
@@ -1780,3 +1923,74 @@ class ShardedTyper:
         return dict(levels=levels, order=order, pileup=final_pile,
                     punt=punt, excl=excl, n_reads=n_reads,
                     n_pairs=n_pairs, winner=winner)
+
+    # ------------------------------------------------------------------ #
+    # the pure-device programs: ungated count + staged device EM
+    # ------------------------------------------------------------------ #
+    def _solve(self, counted):
+        """Staged EM over the device-resident class counts (the host
+        hierarchy of typer/engine.py): exon-level EM over rep alleles,
+        expansion of winning groups, full-level EM restricted to the
+        expanded set with length normalization."""
+        cnt, cnt_ex, w, totals, n_used, punt = counted
+        if not self._staged:
+            prob = self._em_steps[(False, False)](
+                cnt, w, self._ones, self._ones).cpu().numpy()
+            return prob, totals, n_used, punt
+        exon_prob = self._em_steps[(True, False)](
+            cnt_ex, w, self._rep_mask, self._ones).cpu().numpy()
+        sel, prob_sum = self._exon_winners(exon_prob)
+        if sel.any():
+            full = self._em_steps[(True, True)](
+                cnt, w, self._ones, self._dev(sel)).cpu().numpy()
+            prob = np.where(sel, full * prob_sum, exon_prob)
+        else:
+            prob = exon_prob
+        return prob, totals, n_used, punt
+
+    def _exon_winners(self, exon_prob: np.ndarray):
+        """Expandable exon-stage winners: the shared staging policy
+        (typer/staging.expansion_winners — same constants and selection
+        rule as the host engine) over the device EM's abundance vector.
+        Zero-probability alleles never appear in the host's ranked list
+        (single_abundance emits positives only), so they are filtered
+        before ranking here too."""
+        from ..typer.staging import expansion_winners
+
+        order = np.argsort(-exon_prob, kind="stable")
+        ranked = [(int(i), float(exon_prob[i])) for i in order
+                  if exon_prob[i] > 0.0]
+        idx_set, prob_sum = expansion_winners(ranked, self._rep_groups)
+        sel = np.zeros(self.A, bool)
+        sel[sorted(idx_set)] = True
+        return sel, prob_sum
+
+    def _result(self, counted, n):
+        prob, totals, n_used, punt = self._solve(counted)
+        return (np.asarray(prob), totals.cpu().numpy(), float(n_used),
+                punt.cpu().numpy()[:n])
+
+    def count_em_global(self, global_codes):
+        """hgtpu's single-call EM entry over a code array that every
+        process of a multi-host run builds alike.  On one device the
+        array is the whole batch: returns (prob, totals, n_used, punt) —
+        the caller MUST rescue or account for the punt mask (never drop
+        it silently)."""
+        return self._result(self._count_single(
+            *self._tables, self._dev(global_codes)), global_codes.shape[0])
+
+    def __call__(self, read_codes: np.ndarray):
+        n = read_codes.shape[0]
+        return self._result(self._count_single(
+            *self._tables, self._dev(self._pad(read_codes))), n)
+
+    def call_pairs(self, r1_codes: np.ndarray, r2_codes: np.ndarray):
+        n = r1_codes.shape[0]
+        return self._result(self._count_pairs(
+            *self._tables, self._dev(self._pad(r1_codes)),
+            self._dev(self._pad(r2_codes))), n)
+
+    def call_allele(self, read_codes: np.ndarray):
+        prob, totals, n_used, _ = self(read_codes)
+        top = int(np.argmax(prob))
+        return self.gene.allele_names[top], float(prob[top]), totals, n_used

@@ -1,4 +1,5 @@
-# Copy of hgtpu/typer/em.py:1-114, the numpy solver; _em_dense is not ported yet.
+# Port of hgtpu/typer/em.py: the numpy solver is a copy; the dense device
+# EM (_em_dense, em_solve_dense) runs on torch.
 """EM abundance solver with SQUAREM acceleration.
 
 Faithful port of the reference's single_abundance / next_prob / prob_diff
@@ -8,14 +9,19 @@ Sailfish), convergence diff < 1e-4, <=1000 iterations, optional length
 normalization and low-abundance pruning.
 
 The shipped solver (`single_abundance`) runs vectorized NumPy over a
-dense [C, A] class-membership matrix.  The reference's dict-literal SQUAREM lives in
-`tests/reference_em.py` as the parity oracle.
+dense [C, A] class-membership matrix; `em_solve_dense` is its float32
+device twin (hgtpu's jitted `_em_dense`), on torch.  The reference's
+dict-literal SQUAREM lives in `tests/reference_em.py` as the parity
+oracle.
 """
 from __future__ import annotations
 
 import math
 
 import numpy as np
+import torch
+
+from .. import resolve_device
 
 
 def prob_diff(prob1: dict, prob2: dict) -> float:
@@ -109,3 +115,64 @@ def single_abundance(cmpt_counts: dict,
         return []
     return _single_abundance_np(cmpt_counts, remove_low_abundance_allele,
                                 lengths or {})
+
+
+# --------------------------------------------------------------------------- #
+# Dense device EM
+# --------------------------------------------------------------------------- #
+def _em_dense(M, counts, inv_len, use_len: bool):
+    """M: [C, A] bool membership, counts: [C] f32, inv_len: [A] f32, all
+    on one device.  Returns the final prob [A] (float32, on that device).
+    SQUAREM with L1 diff < 1e-4 and a 1,000-iteration cap; the loop's
+    condition is read on the host each iteration, as lax.while_loop
+    evaluates it between iterations."""
+    Mf = M.to(torch.float32)
+    sizes = Mf.sum(1).clamp(min=1.0)
+
+    def norm(p):
+        p_len = p * inv_len if use_len else p
+        return p_len / p_len.sum().clamp(min=1e-30)
+
+    def nxt(p):
+        denom = Mf @ p                                   # [C]
+        w = torch.where(denom > 0, counts / denom.clamp(min=1e-30),
+                        torch.zeros_like(denom))
+        return norm((Mf.T @ w) * p)
+
+    p = norm(Mf.T @ (counts / sizes))
+    diff = torch.ones((), dtype=torch.float32, device=p.device)
+    it = 0
+    while bool(diff > 1e-4) and it < 1000:
+        p1 = nxt(p)
+        p2 = nxt(p1)
+        r = p1 - p
+        v = p2 - p1 - r
+        ssv = (v * v).sum()
+        gamma = -torch.sqrt((r * r).sum() / ssv.clamp(min=1e-30))
+        accel = (p - 2 * gamma * r + gamma * gamma * v).clamp(min=0.0)
+        p_new = torch.where(ssv > 0.0, nxt(accel), p1)
+        diff = (p_new - p).abs().sum()
+        p = p_new
+        it += 1
+    return norm(p)
+
+
+def em_solve_dense(membership: np.ndarray, counts: np.ndarray,
+                   lengths: np.ndarray = None, device=None):
+    """Dense EM: membership [C, A] bool, counts [C].  Returns prob [A]
+    (numpy float32), computed on `device` (default: the card when there
+    is one)."""
+    dev = resolve_device(device)
+    A = membership.shape[1]
+    if lengths is None:
+        inv_len = np.ones(A, np.float32)
+        use_len = False
+    else:
+        inv_len = (1.0 / np.asarray(lengths, np.float64)).astype(np.float32)
+        use_len = True
+
+    def t(a, dt):
+        return torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
+
+    return _em_dense(t(membership, bool), t(counts, np.float32),
+                     t(inv_len, np.float32), use_len).cpu().numpy()

@@ -60,8 +60,14 @@ def test_align_batches_records_equal(min_var_freq):
 
 
 def test_device_verify_on_not_ported():
+    """device_verify="on" without the native verifier raises (the DP
+    would not run); "auto" is off on the CPU."""
     spec = make_gene_msa(seed=11, n_alleles=8, length=600)
     gene, _ = build_gene_ref("A", spec["names"], spec["rows"],
                              spec["ref_allele"], min_var_freq=0.0)
-    with pytest.raises(NotImplementedError, match="banded_dp"):
-        GeneAligner(carried(gene), device_verify="on", device="cpu")
+    with pytest.raises(RuntimeError, match="native verifier"):
+        GeneAligner(carried(gene), device_verify="on", use_native="off",
+                    device="cpu")
+    assert GeneAligner(carried(gene), device="cpu")._dp_tables is None
+    with pytest.raises(ValueError, match="device_verify"):
+        GeneAligner(carried(gene), device_verify="yes", device="cpu")

@@ -254,3 +254,119 @@ def test_count_product_card_exact_above_bf16(cuda, n):
     assert got.dtype == torch.float32
     assert torch.equal(got.cpu(), count_product(x, links))
     assert float(got[0, 0]) == n
+
+
+def _dp_gene(kind):
+    from hgtpu_torch.db import build_gene_ref
+    from synth import make_gene_msa
+
+    if kind == "deletion":
+        spec = make_gene_msa(seed=11, n_alleles=24, length=1600, n_del=10,
+                             n_ins=8)
+        mvf = 0.0
+    else:
+        spec = make_gene_msa(seed=15, n_alleles=24, length=1600, n_ins=14)
+        mvf = 8.0
+    gene, _ = build_gene_ref("A", spec["names"], spec["rows"],
+                             spec["ref_allele"], min_var_freq=mvf)
+    return gene
+
+
+def _dp_entries(gene, seed, n, device):
+    """Allele windows (some mutated) proposed at drifts up to past both
+    band edges, junk reads, ragged and odd lengths (0, negative, past
+    W), starts past both backbone ends."""
+    from hgtpu_torch.utils.dna import encode_seq
+
+    rng = np.random.default_rng(seed)
+    P = len(gene.backbone)
+    rows = []
+    for k in range(n):
+        a = gene.allele_names[int(rng.integers(0, gene.n_alleles))]
+        seq = gene.allele_seq(a)
+        ln = int(rng.integers(30, 151))
+        s = int(rng.integers(0, max(1, len(seq) - ln)))
+        read = list(seq[s:s + ln])
+        for _ in range(int(rng.integers(0, 4))):
+            p = int(rng.integers(1, len(read) - 1))
+            read[p] = "ACGT"[int(rng.integers(0, 4))]
+        if k % 5 == 4:
+            read = ["ACGT"[c] for c in rng.integers(0, 4, ln)]
+        rows.append((encode_seq("".join(read)),
+                     s + int(rng.integers(-30, 31))))
+    W = max(len(r) for r, _ in rows)
+    reads = rng.integers(0, 5, (n, W)).astype(np.int8)   # junk past lens
+    for i, (r, _s) in enumerate(rows):
+        reads[i, :len(r)] = r
+    lens = np.array([len(r) for r, _ in rows], np.int32)
+    starts = np.array([s for _, s in rows], np.int32)
+    lens[:4] = (0, -1, W + 7, 1)
+    starts[4:8] = (-40, -1, P - 1, P + 100)
+    return tuple(torch.from_numpy(x).to(device)
+                 for x in (reads, lens, starts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,max_novel,n", [
+    ("deletion", 2, 1001), ("insertion", 2, 515), ("deletion", 30, 301),
+    ("insertion", 30, 33), ("insertion", 0, 64)])
+def test_dp_kernel_equals_plain(cuda, kind, max_novel, n):
+    """The banded DP kernel on the card, one launch counted, bitwise
+    equal to its plain version on the same tensors (cost and over)."""
+    from hgtpu_torch.ops.banded_dp import (BandedDPTables, banded_costs,
+                                           banded_costs_plain)
+
+    tab = BandedDPTables(_dp_gene(kind), cuda)
+    reads, lens, starts = _dp_entries(tab.gene, n + max_novel, n, cuda)
+    args = (tab.table, reads, lens, starts, tab.P, max_novel,
+            tab.del_lens, tab.ins_lens)
+    before = banded_costs.launches
+    cost, over = banded_costs(*args)
+    torch.cuda.synchronize()
+    assert banded_costs.launches == before + 1
+    want_c, want_o = banded_costs_plain(*args)
+    assert torch.equal(cost, want_c)
+    assert torch.equal(over, want_o)
+    assert (want_c <= max_novel).any()
+    if max_novel == 30:
+        assert want_o.any()
+
+
+@pytest.mark.cuda
+def test_aligner_device_verify_card_equals_cpu(cuda):
+    """"auto" on the card is device verify (the DP kernel launches), and
+    the records equal the CPU's host-only ones."""
+    import dataclasses
+
+    from hgtpu_torch.align import GeneAligner
+    from hgtpu_torch.ops.banded_dp import banded_costs
+    from hgtpu_torch.sim import simulate_reads
+
+    gene = _dp_gene("insertion")
+    card = GeneAligner(gene, device=cuda)
+    if card.native is None:
+        pytest.fail("the native verifier is not built (make -C native)")
+    assert card._dp_tables is not None
+    cpu = GeneAligner(gene, device="cpu")
+    assert cpu._dp_tables is None
+    r1, r2, _ = simulate_reads(gene, list(gene.allele_names[:3]),
+                               simulate_interval=5, perbase_errorrate=2.0,
+                               seed=3)
+    groups = [([r.name for r in r1], [r.seq for r in r1], "L"),
+              ([r.name for r in r2], [r.seq for r in r2], "R")]
+    before = banded_costs.launches
+    got = card.align_batches(groups)
+    assert banded_costs.launches > before
+
+    def key(a):
+        if a is None:
+            return None
+        d = dataclasses.asdict(a)
+        d.pop("uid")
+        d["codes"] = bytes(d["codes"])
+        d["alts"] = None if a.alts is None else [key(x) for x in a.alts]
+        return d
+
+    want = cpu.align_batches(groups)
+    for g, w in zip(got, want):
+        assert [key(a) for a in g] == [key(a) for a in w]

@@ -36,6 +36,23 @@ for kw in (dict(device_counting="off"), dict(device_counting="on"),
                      [(r.name, r.seq) for r in r2],
                      TypingOptions(simulation=True, **kw), device="cpu")
     assert res.prob[0][0] == truth, res.prob[:3]
+# device verify (the DP's plain version) and the pure-device programs
+from hgtpu_torch.align import GeneAligner
+from hgtpu_torch.align.native_verify import native_available
+from hgtpu_torch.entry import dryrun_multichip
+from hgtpu_torch.parallel.e2e import ShardedTyper
+if native_available():
+    res = type_reads(gene, [(r.name, r.seq) for r in r1],
+                     [(r.name, r.seq) for r in r2],
+                     TypingOptions(simulation=True), device="cpu",
+                     aligner=GeneAligner(gene, device_verify="on",
+                                         device="cpu"))
+    assert res.prob[0][0] == truth, res.prob[:3]
+st = ShardedTyper(gene, "cpu", em_iters=50)
+prob = st.call_pairs(st.encode([r.seq for r in r1]),
+                     st.encode([r.seq for r in r2]))[0]
+assert gene.allele_names[int(prob.argmax())] == truth
+dryrun_multichip(1, device="cpu")
 assert sys.modules["jax"] is None and sys.modules["hgtpu"] is None
 assert type(gene).__module__ == "hgtpu_torch.db.catalog"
 print("TYPED", truth)
