@@ -44,11 +44,16 @@ Phases:
              K2 timed at the largest H x K and at the production rescue's
              fold, in turns (plain, slab, wide, slab, wide, plain), and
              the slab kernel with K = 0 (staging, tile walk and stores)
-  DP         the banded DP kernel (device verify) against its plain
-             version, bitwise (cost and over), at every (E, W) the
-             warm-ups gave it, and on a synthetic batch of the insertion
-             test gene at a 30-edit budget, which sets over; kernel and
-             plain timed at the host path's and the rescue's shapes
+  DP         both banded DP kernels (device verify) against their plain
+             version, bitwise (cost and over): the bit kernel (budgets
+             0-7, the path's) and the warp kernel at every (E, W) the
+             warm-ups gave them, and on a synthetic batch of the
+             insertion test gene, the bit kernel at budgets 0, 2 and 7,
+             the warp kernel at 30 (7 and 30 set over); both timed in
+             turns (bits, warp, warp, bits) beside the plain version at
+             the host path's and the rescue's shapes; bound: the level-
+             mask form's word operations at the card's int32 rate (64
+             lanes per SM and clock at nvidia-smi's max SM clock)
   compat     compat_mxu's product at prod-scale's shape (bf16 operands,
              float32 output) equals the float64 product: exact counts
   toy/scale  host-engine path: 60-allele gene (4 truths) and the
@@ -69,9 +74,10 @@ Phases:
   proof      launch counts of each path's runs (counts set to 0 just
              before the path, read just after): K1 > 0 on both paths, K2
              > 0 on the host path and on prod-scale whenever its rescue
-             reached the fold, the DP > 0 on the host path and in the
-             prod-scale rescue; the native verifier loaded; neither jax
-             nor hgtpu (the JAX package) ever imported
+             reached the fold, the bit DP kernel > 0 on the host path and
+             in the prod-scale rescue and the warp DP kernel 0 on both
+             paths; the native verifier loaded; neither jax nor hgtpu
+             (the JAX package) ever imported
 
 Every failure raises: nothing is caught and carried on, and there is no
 CPU fallback.  Exits non-zero without a CUDA device or without the repo
@@ -84,7 +90,8 @@ wrapped call, tens of microseconds, would swamp a small kernel),
 bound_ms / bound_by the least time the card could take for the same
 work, launches the main path's count, max_abs_err over every shape
 checked.  "kernels" lists the kernels of the path; "off_path" the wide
-K2 variant, which no table of the path takes.
+K2 variant, which no table of the path takes, and the warp DP kernel,
+which no budget of the path takes.
 """
 import json
 import os
@@ -95,7 +102,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 STAGES = ("device.place", "device.spell", "device.countB", "device.rescue",
-          "device.merge", "rescue.align", "verify.device_dp", "type.em")
+          "device.merge", "rescue.align", "verify.prep", "verify.native",
+          "verify.dp_codes", "verify.dp_pad", "verify.device_dp",
+          "verify.dp_apply", "type.em")
 
 
 def log(*a):
@@ -242,38 +251,100 @@ def check_truths(res, truths, what):
                              % (what, res.prob[0][0]))
 
 
+def int32_rate():
+    """The card's int32 rate, operations a second: 64 int32 lanes per SM
+    and clock (Hopper's SM) x the SMs x the max SM clock nvidia-smi
+    reports; and that clock in MHz and the SM count."""
+    import torch
+
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 64 * sms * mhz * 1e6, mhz, sms
+
+
+def dp_ops(args):
+    """Word operations the level-mask form of the banded DP needs for
+    these entries, the least any implementation of the recurrence does:
+    per entry and read position up to min(len, W), the transitions every
+    position needs (the pending merge, the consume, one closure round of
+    the two novel deletions and its convergence test, the two novel
+    insertions: 7), one more where a catalog deletion row lies in the
+    band and one more where a catalog insertion row does; each 3 word
+    operations (shift, mask, min) on each of the max_novel + 1 levels,
+    64 diagonals a word (the band's 33 fit one)."""
+    import torch
+    from hgtpu_torch.ops.banded_dp import D, DNEG, OFF
+
+    table, reads, lens, starts, P, max_novel = args[:6]
+    E, W = reads.shape
+    rows = table.shape[0]
+    counts = []
+    for flag in (table[:, 1] != 0, ((table[:, 0] >> 9) & 63) != 0):
+        c = torch.zeros(rows + 1, dtype=torch.int64, device=table.device)
+        c[1:] = torch.cumsum(flag.long(), 0)
+        counts.append(c)
+    i = torch.arange(W + 1, device=reads.device)
+    q = starts.long()[:, None] + i[None, :] + (OFF - DNEG)   # row of d = 0
+    lo = q.clamp(OFF, OFF + P)
+    hi = (q + D).clamp(OFF, OFF + P)
+    n = torch.full_like(q, 7)
+    for c in counts:
+        n += (c[hi] - c[lo]) > 0
+    walk = i[None, :] <= torch.minimum(lens.long(), torch.full_like(
+        lens.long(), W))[:, None]
+    return 3 * (max_novel + 1) * int((n * walk).sum())
+
+
 def dp_phase(seen_dp, timer):
-    """The banded DP kernel against its plain version, bitwise, at every
-    recorded (E, W) and on a synthetic batch that sets over; then both
-    timed (timer = cuda_ms) at the host path's and the prod rescue's
-    largest shapes.  Returns the kernel's JSON records."""
+    """Both banded DP kernels against the plain version, bitwise (cost and
+    over): the bit kernel at every recorded (E, W) and on a synthetic
+    batch at budgets 0, 2 and 7 (which must reach both band edges), the
+    warp kernel at every recorded (E, W) and on the synthetic batch at
+    30 edits; then both kernels timed in turns (bits, warp, warp, bits;
+    timer = cuda_ms), the plain version before and after, at the host
+    path's and the prod rescue's largest shapes.  Returns the JSON
+    records of the bit kernel and of the warp kernel."""
     import numpy as np
     import torch
     from synth import make_gene_msa
     from hgtpu_torch.db import build_gene_ref
-    from hgtpu_torch.ops.banded_dp import (D, NI, NITER, BandedDPTables,
-                                           banded_costs, banded_costs_plain)
+    from hgtpu_torch.ops.banded_dp import (INF, BandedDPTables,
+                                           banded_costs_bits,
+                                           banded_costs_plain,
+                                           banded_costs_warp, dp_plan)
     from hgtpu_torch.utils.dna import encode_seq
 
-    def check(args, what):
-        got = banded_costs(*args)
+    def run(kernel, args, planes):
+        if kernel == "bits":
+            return banded_costs_bits(args[0], planes, *args[1:])
+        return banded_costs_warp(*args)
+
+    def check(kernel, args, planes, what):
+        got = run(kernel, args, planes)
         want = banded_costs_plain(*args)
         if not (torch.equal(got[0], want[0]) and torch.equal(got[1],
                                                              want[1])):
             bad = int((got[0] != want[0]).sum() + (got[1] != want[1]).sum())
-            raise AssertionError("DP kernel != plain at %s (%d entries "
-                                 "differ)" % (what, bad))
+            raise AssertionError("DP %s kernel != plain at %s (%d entries "
+                                 "differ)" % (kernel, what, bad))
         return want
 
-    for (E, W, P), (args, runs) in sorted(seen_dp.items()):
-        cost, over = check(args, "E=%d W=%d" % (E, W))
-        log("DP: E=%d W=%d P=%d (runs %s): kernel bitwise equal (cost and "
-            "over); %d within the budget, %d over"
+    for (E, W, P), (args, planes, runs) in sorted(seen_dp.items()):
+        if dp_plan(args[5]) != "bits":
+            raise AssertionError("the path's DP budget %d does not take the "
+                                 "bit kernel" % args[5])
+        for kernel in ("bits", "warp"):
+            cost, over = check(kernel, args, planes, "E=%d W=%d" % (E, W))
+        log("DP: E=%d W=%d P=%d (runs %s): bit and warp kernels bitwise "
+            "equal (cost and over); %d within the budget, %d over"
             % (E, W, P, ",".join(sorted(runs)), int((cost <= 2).sum()),
                int(over.sum())))
     # a synthetic batch: the insertion test gene, allele windows with
-    # substitutions at drifted starts, junk reads, a 30-edit budget that
-    # spreads the states to both band edges
+    # substitutions at drifted starts, junk reads; budgets 7 and 30 spread
+    # the states to both band edges
     spec = make_gene_msa(seed=15, n_alleles=24, length=1600, n_ins=14)
     gene, _ = build_gene_ref("A", spec["names"], spec["rows"],
                              spec["ref_allele"], min_var_freq=8.0)
@@ -290,63 +361,65 @@ def dp_phase(seen_dp, timer):
         r = encode_seq(a[s0:s0 + int(lens[e])])
         reads[e, :len(r)] = r
         starts[e] = s0 + int(rng.integers(-12, 13))
-    args = (tab.table, *(torch.from_numpy(x).to(dev)
-                         for x in (reads, lens, starts)),
-            tab.P, 30, tab.del_lens, tab.ins_lens)
-    cost, over = check(args, "the synthetic batch")
-    if not (over.any() and (~over).any() and (cost <= 2).any()):
-        raise AssertionError("DP: the synthetic batch did not reach both "
-                             "band edges")
-    log("DP: synthetic E=%d W=%d, 30-edit budget: kernel bitwise equal; "
-        "%d over, %d finite" % (E, W, int(over.sum()),
-                                int((cost < 1 << 20).sum())))
+    ops = tuple(torch.from_numpy(x).to(dev) for x in (reads, lens, starts))
+    for kernel, budget in (("bits", 0), ("bits", 2), ("bits", 7),
+                           ("warp", 30)):
+        args = (tab.table,) + ops + (tab.P, budget, tab.del_lens,
+                                     tab.ins_lens)
+        cost, over = check(kernel, args, tab.planes,
+                           "the synthetic batch, budget %d" % budget)
+        if budget >= 7 and not (over.any() and (~over).any()
+                                and (cost <= 2).any()):
+            raise AssertionError("DP: the synthetic batch did not reach "
+                                 "both band edges at budget %d" % budget)
+        log("DP: synthetic E=%d W=%d, budget %d: %s kernel bitwise equal; "
+            "%d over, %d finite" % (E, W, budget,
+                                    "bit" if kernel == "bits" else kernel,
+                                    int(over.sum()),
+                                    int((cost < INF).sum())))
 
-    records = []
-    for where, run in (("host path", "scale"), ("prod rescue",
-                                                 "prod-scale")):
-        key = max((k for k, v in seen_dp.items() if run in v[1]),
+    rate, mhz, sms = int32_rate()
+    records = {"bits": [], "warp": []}
+    for where, run_name in (("host path", "scale"),
+                            ("prod rescue", "prod-scale")):
+        key = max((k for k, v in seen_dp.items() if run_name in v[2]),
                   key=lambda k: k[0], default=None)
         if key is None:
             continue
-        args = seen_dp[key][0]
-        table, reads_d, lens_d = args[:3]
+        args, planes, _runs = seen_dp[key]
+        table, reads_d = args[:2]
         E, W = reads_d.shape
-        turns = {"plain": [], "kernel": []}
-        for k in ("plain", "kernel", "kernel", "plain"):
+        turns = {"plain": [], "bits": [], "warp": []}
+        for k in ("plain", "bits", "warp", "warp", "bits", "plain"):
             turns[k].append(
-                timer(lambda: banded_costs(*args)) if k == "kernel"
-                else timer(lambda: banded_costs_plain(*args), iters=1,
-                           warmup=1))
+                timer(lambda: banded_costs_plain(*args), iters=1, warmup=1)
+                if k == "plain" else timer(lambda: run(k, args, planes)))
         ms = {k: sum(v) / len(v) for k, v in turns.items()}
-        # the work this run's data needs: the kernel walks each entry's
-        # read positions 0..min(len, W); per position and diagonal,
-        # (NITER + 1) * (n_del + 2) relaxations, NI * n_ins catalog
-        # insertions, 2 novel insertions, the consume and the pending
-        # merge, each a select and a min, on the CUDA cores (int32; the
-        # float32 CUDA-core peak is the yardstick)
-        positions = int((torch.minimum(lens_d, torch.full_like(lens_d, W))
-                         + 1).clamp(min=0).sum())
-        n_min = (NITER + 1) * (len(args[6]) + 2) + NI * len(args[7]) + 4
-        ops = 2 * D * positions * n_min
-        nbytes = E * W + 8 * E + table.numel() * 4 + 5 * E
-        b_ms, b_by = bound_ms(nbytes, ops, PEAK_F32_S)
-        log("DP: %s E=%d W=%d: kernel %.4f ms, plain %.4f ms; bound %.4f "
-            "ms (%s: %.3g integer ops, %d bytes), kernel at %.1f %% of it; "
-            "turns %s" % (where, E, W, ms["kernel"], ms["plain"], b_ms, b_by,
-                          ops, nbytes, 100 * b_ms / ms["kernel"],
-                          {k: [round(x, 4) for x in v]
-                           for k, v in turns.items()}))
-        records.append(dict(
-            name="banded_dp", route="cuda",
-            source="hgtpu_torch/csrc/banded_dp.cu",
-            replaces="hgtpu/ops/banded_dp.py:140", max_abs_err=0.0,
-            ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=b_ms,
-            bound_by=b_by, library_ms=None,
-            library="none: no torch call computes the banded DP",
-            shape="E=%d W=%d P=%d (%s)" % (E, W, key[2], where),
-            turns_ms=turns["kernel"], shapes_checked=len(seen_dp) + 1,
-            hand_kernel="no Pallas counterpart (hgtpu's lax.scan)"))
-    return records
+        ops_n = dp_ops(args)
+        nbytes = E * W + 8 * E + planes.numel() * 8 + 5 * E
+        b_ms, b_by = bound_ms(nbytes, ops_n, rate)
+        log("DP: %s E=%d W=%d: bit kernel %.4f ms, warp kernel %.4f ms, "
+            "plain %.4f ms; bound %.4f ms (%s: %.4g word ops at %.4g int32 "
+            "ops/s = 64 x %d SMs x %.0f MHz; %d bytes): bits at %.1f %%, "
+            "warp at %.2f %% of it; turns %s"
+            % (where, E, W, ms["bits"], ms["warp"], ms["plain"], b_ms, b_by,
+               ops_n, rate, sms, mhz, nbytes, 100 * b_ms / ms["bits"],
+               100 * b_ms / ms["warp"],
+               {k: [round(x, 4) for x in v] for k, v in turns.items()}))
+        for kernel in ("bits", "warp"):
+            records[kernel].append(dict(
+                name="banded_dp_" + kernel, route="cuda",
+                source="hgtpu_torch/csrc/banded_dp.cu",
+                replaces="hgtpu/ops/banded_dp.py:140", max_abs_err=0.0,
+                ms=ms[kernel], plain_ms=ms["plain"], bound_ms=b_ms,
+                bound_by=b_by, library_ms=None,
+                library="none: no torch call computes the banded DP",
+                shape="E=%d W=%d P=%d budget %d (%s)" % (E, W, key[2],
+                                                         args[5], where),
+                turns_ms=turns[kernel], shapes_checked=len(seen_dp) + 4,
+                word_ops=ops_n, int32_ops_s=rate,
+                hand_kernel="no Pallas counterpart (hgtpu's lax.scan)"))
+    return records["bits"], records["warp"]
 
 
 def dryrun_phase(big, dev):
@@ -448,7 +521,8 @@ def main():
     from hgtpu_torch.align import GeneAligner
     from hgtpu_torch.ops import banded_dp as tdp
     from hgtpu_torch.ops import placement as tplace
-    from hgtpu_torch.ops.banded_dp import banded_costs, banded_costs_plain
+    from hgtpu_torch.ops.banded_dp import (banded_costs, banded_costs_bits,
+                                           banded_costs_warp)
     from hgtpu_torch.ops.compat_kernel import (and_reduce, and_reduce_plain,
                                                and_reduce_slab,
                                                and_reduce_wide, k2_plan)
@@ -561,7 +635,7 @@ def main():
     n_toy = len(t1) + len(t2)
     toy_gpu = GeneAligner(toy, device=dev)
     seen = {"placement_scores": {}, "and_reduce": {}}
-    seen_dp = {}        # (E, W, P) -> (args, runs)
+    seen_dp = {}        # (E, W, P) -> (args, planes, runs)
     gemms = []
     run_name = [None]
 
@@ -573,8 +647,9 @@ def main():
                 torch.from_numpy(np.ascontiguousarray(x, dt)).to(dev)
                 for x, dt in ((reads, np.int8), (lens, np.int32),
                               (starts, np.int32)))
-                + (self.P, max_novel, self.del_lens, self.ins_lens), set())
-        seen_dp[key][1].add(run_name[0])
+                + (self.P, max_novel, self.del_lens, self.ins_lens),
+                self.planes, set())
+        seen_dp[key][2].add(run_name[0])
         return real_costs(self, reads, lens, starts, max_novel)
 
     def recorder(name, real):
@@ -630,7 +705,7 @@ def main():
                 raise AssertionError("the %s warm-up run never called %s"
                                      % (run, name))
     for run in ("scale", "toy", "prod-scale"):
-        if not any(run in v[1] for v in seen_dp.values()):
+        if not any(run in v[2] for v in seen_dp.values()):
             raise AssertionError("the %s warm-up run never called the "
                                  "banded DP" % run)
 
@@ -773,7 +848,9 @@ def main():
     del seen, links_w, vars_w, got
 
     # ---- the banded DP (device verify) ---- #
-    kernels.extend(dp_phase(seen_dp, cuda_ms))
+    dp_bits, dp_warp = dp_phase(seen_dp, cuda_ms)
+    kernels.extend(dp_bits)
+    off_path.extend(dp_warp)
     del seen_dp
 
     # ---- compat_mxu's product at prod-scale's shape: bf16 operands,
@@ -804,13 +881,16 @@ def main():
         return {"placement_scores": placement_scores.launches,
                 "and_reduce_slab": and_reduce_slab.launches,
                 "and_reduce_wide": and_reduce_wide.launches,
-                "banded_dp": banded_costs.launches}
+                "banded_dp_bits": banded_costs_bits.launches,
+                "banded_dp_warp": banded_costs_warp.launches}
 
     def reset():
         placement_scores.launches = 0
         and_reduce_slab.launches = 0
         and_reduce_wide.launches = 0
         banded_costs.launches = 0
+        banded_costs_bits.launches = 0
+        banded_costs_warp.launches = 0
 
     # ---- host-engine path: counts cover exactly these two runs ---- #
     reset()
@@ -924,13 +1004,16 @@ def main():
     # ---- 9. proof of path ---- #
     for rec in kernels + off_path:
         rec["launches"] = prod_launches[rec["name"]]
-    for name in ("placement_scores", "and_reduce_slab", "banded_dp"):
+    for name in ("placement_scores", "and_reduce_slab", "banded_dp_bits"):
         if host_launches[name] <= 0:
             raise AssertionError("%s never launched on the host-engine path"
                                  % name)
-    if scale_launches["banded_dp"] <= 0 or not scale_dp:
-        raise AssertionError("the banded DP never launched in the "
+    if scale_launches["banded_dp_bits"] <= 0 or not scale_dp:
+        raise AssertionError("the bit DP kernel never launched in the "
                              "prod-scale rescue")
+    if host_launches["banded_dp_warp"] or prod_launches["banded_dp_warp"]:
+        raise AssertionError("the warp DP kernel launched on a path (budget "
+                             "2 takes the bit kernel)")
     if big_gpu.native is None or big_gpu._dp_tables is None \
             or toy_gpu._dp_tables is None:
         raise AssertionError("device verify is off on the card: the native "

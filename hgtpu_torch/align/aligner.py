@@ -122,22 +122,16 @@ class GeneAligner:
         # host path, so results are bit-identical to device_verify="off".
         # hgtpu's "auto" takes it on a locally attached device (dispatch
         # round trip under 2 ms), which a CUDA card on its own bus is:
-        # "auto" is on for CUDA and off on the CPU, as hgtpu's rule is off
-        # a TPU.  As in hgtpu the DP runs only beside the native verifier
-        # and not in leftmost mode, so "auto" also asks for the native
-        # verifier, and "on" without it raises rather than skip the DP.
-        if device_verify not in ("auto", "on", "off"):
-            raise ValueError("device_verify must be auto, on or off")
+        # "auto" is on for CUDA beside the native verifier and off on the
+        # CPU, as hgtpu's rule is off a TPU.  As in hgtpu, "on" builds the
+        # tables whatever else holds, the DP runs only beside the native
+        # verifier and not in leftmost mode (align_batches), and any other
+        # value is "off".
         if device_verify == "auto":
             device_verify = "on" if (self.device.type == "cuda"
                                      and self.native is not None) else "off"
         self._dp_tables = None
         if device_verify == "on":
-            if self.native is None:
-                raise RuntimeError(
-                    "device_verify='on' needs the native verifier "
-                    "(make -C native): it extracts the DP winners' edit "
-                    "scripts")
             from ..ops.banded_dp import BandedDPTables
             self._dp_tables = BandedDPTables(gene, self.device)
 
@@ -256,15 +250,18 @@ class GeneAligner:
             per_chunk = [self._rank_entries(st, 0) for _g, _p, st in states]
             sizes = [len(e[2]) if e else 0 for e in per_chunk]
             if sum(sizes):
+                with TRACE.stage("verify.dp_codes"):
+                    codes = [r for e in per_chunk if e
+                             for r in e[0](range(len(e[2])))]
                 cost, over = self._dp_costs(
-                    [r for e in per_chunk if e
-                     for r in e[0](range(len(e[2])))],
-                    [s for e in per_chunk if e for s in e[1]])
+                    codes, [s for e in per_chunk if e for s in e[1]])
                 at = 0
                 for e, n, (_gi, _pad, st) in zip(per_chunk, sizes, states):
                     if not n:
                         continue
-                    self._apply_dp(st, e, cost[at:at + n], over[at:at + n])
+                    with TRACE.stage("verify.dp_apply"):
+                        self._apply_dp(st, e, cost[at:at + n],
+                                       over[at:at + n])
                     at += n
             start_rank = 1  # rank-0 handled; leftovers retry natively
 
@@ -824,11 +821,12 @@ class GeneAligner:
         entry's result depends on another's, so E stays as it is.
         Returns host (cost, over) arrays."""
         E = len(flat_reads)
-        W = max(len(r) for r in flat_reads)
-        W = ((W + 31) // 32) * 32
-        reads = _pad_codes_2d(flat_reads, E, W, fill=4)
-        lens = np.fromiter((len(r) for r in flat_reads), np.int32, E)
-        starts = np.asarray(flat_starts, np.int32)
+        with TRACE.stage("verify.dp_pad"):
+            W = max(len(r) for r in flat_reads)
+            W = ((W + 31) // 32) * 32
+            reads = _pad_codes_2d(flat_reads, E, W, fill=4)
+            lens = np.fromiter((len(r) for r in flat_reads), np.int32, E)
+            starts = np.asarray(flat_starts, np.int32)
         with TRACE.stage("verify.device_dp"):
             cost, over = self._dp_tables.costs(
                 reads, lens, starts, max_novel=self.num_editdist)

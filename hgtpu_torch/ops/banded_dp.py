@@ -26,11 +26,19 @@ with the DFS and fall back when costs disagree.
 hgtpu writes the DP as a ``lax.scan`` over the W + 1 read positions of
 masked mins over static diagonal shifts, one fused XLA program.  Eager
 torch would launch ~10^4 small kernels per call, so the port runs it as
-one CUDA kernel (``csrc/banded_dp.cu``, one warp per proposal, lanes over
-the diagonals); ``banded_costs_plain`` is the same recurrence as torch
-slice-mins, a line-for-line transliteration of hgtpu's scan body.
+one CUDA kernel (``csrc/banded_dp.cu``), of two kinds that ``dp_plan``
+picks from the edit budget alone:
 
-Both read one packed table of four int32 words per row (``pack_rows``):
+    bits  budgets 0-7: one thread per proposal, every plane held as
+          budget + 1 threshold masks (bit d of level k set when the cost
+          at diagonal d is <= k), every transition word logic
+    warp  larger budgets: one warp per proposal, lanes over diagonals
+
+``banded_costs_plain`` is the same recurrence as torch slice-mins, a
+line-for-line transliteration of hgtpu's scan body.
+
+The warp kernel and the plain version read one packed table of four
+int32 words per row (``pack_rows``):
 
     word 0  bits 0-7   free[r, b]: base code b is free at the row
             bit 8      over[r]: catalog indels past the packed slots
@@ -40,8 +48,11 @@ Both read one packed table of four int32 words per row (``pack_rows``):
     word 3  ins_seq[r, 1, 0..3]
 
 and the gene's distinct deletion and insertion lengths as tuples (hgtpu's
-static arguments); the kernel takes them as bit masks (bit L set for
-length L: deletions <= DPOS, insertions <= IL, so one int32 each).
+static arguments); the kernels take them as bit masks (bit L set for
+length L: deletions <= DPOS, insertions <= IL, so one int32 each).  The
+bit kernel reads the same flags as bit planes over the rows
+(``bit_planes``: row r at bit r + PLANE_PAD of its plane, 64-bit words),
+and the packed table only at the rare rows with a catalog insertion.
 """
 from __future__ import annotations
 
@@ -60,12 +71,20 @@ IL = 4            # max catalog insertion length handled on device
 NITER = 4         # intra-layer closure depth (catalog/novel del chains)
 OFF = DNEG + 2    # gather offset so pos + OFF >= 0 inside the band
 INF = 1 << 20
+BITS_MAX_NOVEL = 7   # the bit kernel's budgets: 0..7 (1..8 threshold masks)
+
+# bit planes (bit_planes): base codes 0-7 free, then these, then one plane
+# per catalog deletion length
+PL_OVER, PL_INS, PL_DEL_ANY, PL_DEL = 8, 9, 10, 11
+PLANE_PAD = 64       # zero bits before row 0: a band's window never starts
+                     # below bit 0
 
 
 class BandedDPTables:
     """Per-gene tables for the banded DP: hgtpu's five numpy arrays
     (``arrays``: free, del_has, ins_len, ins_seq, over), packed once into
-    ``table`` [rows, 4] int32 on `device`."""
+    ``table`` [rows, 4] int32 and ``planes`` [11 + len(del_lens), words]
+    int64 (``bit_planes``) on `device`."""
 
     def __init__(self, gene: GeneRef, device=None):
         self.gene = gene
@@ -116,6 +135,8 @@ class BandedDPTables:
         self.arrays = (free, del_has, ins_len, ins_seq, over)
         self.table = torch.from_numpy(pack_rows(*self.arrays)).to(
             self.device)
+        self.planes = torch.from_numpy(bit_planes(
+            free, del_has, ins_len, over, len(dlens), P)).to(self.device)
 
     def costs(self, reads: np.ndarray, lens: np.ndarray,
               starts: np.ndarray, max_novel: int = 2):
@@ -138,7 +159,8 @@ class BandedDPTables:
 
         return banded_costs(self.table, dev(reads, np.int8),
                             dev(lens, np.int32), dev(starts, np.int32),
-                            self.P, max_novel, self.del_lens, self.ins_lens)
+                            self.P, max_novel, self.del_lens, self.ins_lens,
+                            planes=self.planes)
 
 
 def pack_rows(free, del_has, ins_len, ins_seq, over) -> np.ndarray:
@@ -158,6 +180,33 @@ def pack_rows(free, del_has, ins_len, ins_seq, over) -> np.ndarray:
         w[:, 2 + s] = (seq[:, s, :] << (8 * np.arange(IL, dtype=np.uint32))
                        ).sum(1)
     return w.view(np.int32)
+
+
+def plane_words(P: int) -> int:
+    """64-bit words a plane holds: every row a diagonal inside the
+    backbone reads (rows < OFF + P), past PLANE_PAD, plus the word after
+    the last window's, rounded up to an even count (16-byte planes)."""
+    n = (OFF + P + 63) // 64 + 2
+    return n + (n & 1)
+
+
+def bit_planes(free, del_has, ins_len, over, n_del, P) -> np.ndarray:
+    """hgtpu's row tables as bit planes [11 + n_del, plane_words(P)]
+    int64: bit PLANE_PAD + r of a plane is row r's flag.  Planes 0-7:
+    free[:, b]; PL_OVER: over; PL_INS: a catalog insertion in either
+    slot; PL_DEL_ANY: any catalog deletion; PL_DEL + k: del_has[:, k].
+    Rows past the last word hold no flag (every flag row is < OFF + P)."""
+    words = plane_words(P)
+    n = min(free.shape[0], words * 64 - PLANE_PAD)
+    bits = np.zeros((PL_DEL + n_del, words * 64), bool)
+    at = slice(PLANE_PAD, PLANE_PAD + n)
+    bits[:8, at] = free[:n].T
+    bits[PL_OVER, at] = over[:n]
+    bits[PL_INS, at] = (ins_len[:n] > 0).any(1)
+    bits[PL_DEL_ANY, at] = del_has[:n, :n_del].any(1)
+    bits[PL_DEL:, at] = del_has[:n, :n_del].T
+    return np.packbits(bits, axis=1, bitorder="little").view("<u8") \
+        .view(np.int64)
 
 
 def length_mask(lens) -> int:
@@ -313,12 +362,69 @@ def banded_costs_plain(table, reads, lens, starts, P, max_novel,
     return final, over
 
 
-def banded_costs(table, reads, lens, starts, P, max_novel,
-                 del_lens=(), ins_lens=()):
-    """table [rows, 4] int32 (``pack_rows``), reads [E, W] int8, lens and
-    starts [E] int32, all on one device -> (cost [E] int32, over [E]
-    bool).  The plain version for CPU tensors; for CUDA tensors the
-    kernel, or an error."""
+def dp_plan(max_novel: int) -> str:
+    """The DP kernel for an edit budget: "bits" (threshold masks in
+    registers, one per cost level) for 0..BITS_MAX_NOVEL, else "warp"."""
+    return "bits" if 0 <= max_novel <= BITS_MAX_NOVEL else "warp"
+
+
+def _check_planes(planes, reads, P, del_lens):
+    if planes is None:
+        raise ValueError("the bit kernel needs the bit planes "
+                         "(BandedDPTables.planes)")
+    if planes.device != reads.device or planes.dtype != torch.int64 \
+            or not planes.is_contiguous():
+        raise ValueError("want contiguous int64 planes on %s" % reads.device)
+    want = (PL_DEL + len(del_lens), plane_words(P))
+    if tuple(planes.shape) != want:
+        raise ValueError("want planes %s, got %s"
+                         % (want, tuple(planes.shape)))
+
+
+def _launch(fn, name, reads, *args):
+    """Allocate (cost, over) for `reads`' E entries and launch `name` from
+    the kernel library with `args`, the outputs and the stream; count the
+    launch on `fn` and on banded_costs.  E = 0 launches nothing."""
+    E = reads.shape[0]
+    cost = torch.empty(E, dtype=torch.int32, device=reads.device)
+    over = torch.empty(E, dtype=torch.bool, device=reads.device)
+    if E == 0:
+        return cost, over
+    lib = cuda_lib.load()
+    with torch.cuda.device(reads.device):
+        err = getattr(lib, name)(
+            *args, cost.data_ptr(), over.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check(err, name)
+    fn.launches += 1
+    banded_costs.launches += 1
+    return cost, over
+
+
+def banded_costs_bits(table, planes, reads, lens, starts, P, max_novel,
+                      del_lens=(), ins_lens=()):
+    """The bit kernel (budgets 0..BITS_MAX_NOVEL); the plain version for
+    CPU tensors."""
+    _check(table, reads, lens, starts)
+    if reads.device.type == "cpu":
+        return banded_costs_plain(table, reads, lens, starts, P, max_novel,
+                                  del_lens, ins_lens)
+    if reads.device.type != "cuda" or dp_plan(max_novel) != "bits":
+        raise RuntimeError("no bit DP kernel for budget %d on %s"
+                           % (max_novel, reads.device))
+    _check_planes(planes, reads, P, del_lens)
+    E, W = reads.shape
+    return _launch(banded_costs_bits, "hgtpu_torch_banded_dp_bits", reads,
+                   planes.data_ptr(), planes.shape[0], planes.shape[1],
+                   table.data_ptr(), table.shape[0], reads.data_ptr(), E, W,
+                   lens.data_ptr(), starts.data_ptr(), P, int(max_novel),
+                   length_mask(del_lens), length_mask(ins_lens))
+
+
+def banded_costs_warp(table, reads, lens, starts, P, max_novel,
+                      del_lens=(), ins_lens=()):
+    """The warp kernel (any budget); the plain version for CPU
+    tensors."""
     _check(table, reads, lens, starts)
     if reads.device.type == "cpu":
         return banded_costs_plain(table, reads, lens, starts, P, max_novel,
@@ -327,20 +433,27 @@ def banded_costs(table, reads, lens, starts, P, max_novel,
         raise RuntimeError("no banded DP kernel for device %s"
                            % reads.device)
     E, W = reads.shape
-    cost = torch.empty(E, dtype=torch.int32, device=reads.device)
-    over = torch.empty(E, dtype=torch.bool, device=reads.device)
-    if E == 0:
-        return cost, over
-    lib = cuda_lib.load()
-    with torch.cuda.device(reads.device):
-        err = lib.hgtpu_torch_banded_dp(
-            table.data_ptr(), table.shape[0], reads.data_ptr(), E, W,
-            lens.data_ptr(), starts.data_ptr(), P, int(max_novel),
-            length_mask(del_lens), length_mask(ins_lens), cost.data_ptr(),
-            over.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    cuda_lib.check(err, "banded_dp")
-    banded_costs.launches += 1
-    return cost, over
+    return _launch(banded_costs_warp, "hgtpu_torch_banded_dp_warp", reads,
+                   table.data_ptr(), table.shape[0], reads.data_ptr(), E, W,
+                   lens.data_ptr(), starts.data_ptr(), P, int(max_novel),
+                   length_mask(del_lens), length_mask(ins_lens))
 
 
+def banded_costs(table, reads, lens, starts, P, max_novel,
+                 del_lens=(), ins_lens=(), planes=None):
+    """table [rows, 4] int32 (``pack_rows``), reads [E, W] int8, lens and
+    starts [E] int32, all on one device (and ``planes``, the bit kernel's
+    ``bit_planes``, beside them) -> (cost [E] int32, over [E] bool).  The
+    plain version for CPU tensors; for CUDA tensors the kernel dp_plan
+    picks, or an error."""
+    if dp_plan(max_novel) == "bits":
+        return banded_costs_bits(table, planes, reads, lens, starts, P,
+                                 max_novel, del_lens, ins_lens)
+    return banded_costs_warp(table, reads, lens, starts, P, max_novel,
+                             del_lens, ins_lens)
+
+
+# launches of each kernel; banded_costs.launches is their total
 banded_costs.launches = 0
+banded_costs_bits.launches = 0
+banded_costs_warp.launches = 0

@@ -39,10 +39,14 @@ _SIGNATURES = {
     # links, V1, W, pitch, vars, H, K, out, opitch, stream
     "hgtpu_torch_and_reduce_wide": (_VP, _I, _I, _I, _VP, _I, _I, _VP, _I,
                                     _VP),
+    # planes, n_planes, words, table, rows, reads, E, W, lens, starts, P,
+    # max_novel, del_mask, ins_mask, cost, over, stream
+    "hgtpu_torch_banded_dp_bits": (_VP, _I, _I, _VP, _I, _VP, _I, _I, _VP,
+                                   _VP, _I, _I, _I, _I, _VP, _VP, _VP),
     # table, rows, reads, E, W, lens, starts, P, max_novel, del_mask,
     # ins_mask, cost, over, stream
-    "hgtpu_torch_banded_dp": (_VP, _I, _VP, _I, _I, _VP, _VP, _I, _I, _I, _I,
-                              _VP, _VP, _VP),
+    "hgtpu_torch_banded_dp_warp": (_VP, _I, _VP, _I, _I, _VP, _VP, _I, _I,
+                                   _I, _I, _VP, _VP, _VP),
 }
 
 

@@ -16,8 +16,10 @@ per gene (default 7) with the variants in turns (forward, then
 backward, ...); host clock around type_reads ending in a synchronise;
 TRACE.reset() before each.  Prints per gene and variant the median, best
 and worst wall, reads/s at the median, each TRACE stage's median over the
-runs (rescue.align and the verify.* stages always among them) and the
-(E, W) shapes of the DP launches in the last run.  Then one run each of
+runs (rescue.align and the verify.* stages always among them: with device
+verify on, verify.dp_codes, verify.dp_pad, verify.device_dp and
+verify.dp_apply are its host side and its launch) and the (E, W) shapes
+of the DP launches in the last run.  Then one run each of
 prod-scale, prod-toy and host-scale per setting under torch.profiler
 (CPU + CUDA): device busy share (the kernel events' device time over the
 wall; summing key_averages() would count each kernel twice, under its

@@ -60,14 +60,29 @@ def test_align_batches_records_equal(min_var_freq):
 
 
 def test_device_verify_on_not_ported():
-    """device_verify="on" without the native verifier raises (the DP
-    would not run); "auto" is off on the CPU."""
+    """device_verify follows hgtpu's GeneAligner on the CPU: "on" without
+    the native verifier builds the DP tables and runs no DP, a value
+    other than "auto" or "on" is "off", and "auto" is off.  For each
+    setting both packages give the same _dp_tables answer and the same
+    records, read for read."""
     spec = make_gene_msa(seed=11, n_alleles=8, length=600)
     gene, _ = build_gene_ref("A", spec["names"], spec["rows"],
                              spec["ref_allele"], min_var_freq=0.0)
-    with pytest.raises(RuntimeError, match="native verifier"):
-        GeneAligner(carried(gene), device_verify="on", use_native="off",
-                    device="cpu")
-    assert GeneAligner(carried(gene), device="cpu")._dp_tables is None
-    with pytest.raises(ValueError, match="device_verify"):
-        GeneAligner(carried(gene), device_verify="yes", device="cpu")
+    r1, r2, _ = simulate_reads(gene, [gene.allele_names[2],
+                                      gene.allele_names[5]],
+                               simulate_interval=9, perbase_errorrate=2.0,
+                               seed=5)
+    groups = [([r.name for r in r1], [r.seq for r in r1], "L"),
+              ([r.name for r in r2], [r.seq for r in r2], "R")]
+    for dv, native in (("on", "off"), ("yes", "auto"), ("auto", "auto")):
+        port = GeneAligner(carried(gene), device_verify=dv,
+                           use_native=native, device="cpu")
+        ref = JaxAligner(gene, device_verify=dv, use_native=native)
+        assert (port._dp_tables is None) == (ref._dp_tables is None) \
+            == (dv != "on"), dv
+        got = port.align_batches(groups)
+        want = ref.align_batches(groups)
+        assert sum(a is not None for a in got[0]) > 0.5 * len(r1)
+        for g_mate, w_mate in zip(got, want):
+            assert [_record(a) for a in g_mate] == \
+                [_record(a) for a in w_mate], dv

@@ -9,6 +9,15 @@ port's aligner returns hgtpu's alignments.
             and the wide-deletion overflow gene, with junk reads, ragged
             lengths and proposals on both sides of both band edges;
             padding E and W changes no entry's answer
+  planes    the bit kernel's bit planes (bit_planes) unpack to hgtpu's
+            free, over, del_has and insertion-row arrays
+  masks     a torch int64 model of the bit kernel's threshold-mask
+            recurrence (one 33-bit mask per cost level, every transition
+            word logic, the kernel's closure exit and insertion walk)
+            equals banded_costs_plain and hgtpu's _banded_costs exactly
+            on the three genes at budgets 0, 2 and 7
+  plan      dp_plan picks the kernel from the budget; on the CPU both
+            kernels' wrappers answer with the plain version, uncounted
   aligner   GeneAligner(device_verify="on", device="cpu") returns, read
             for read, hgtpu's device_verify="on" and the port's "off",
             with the DP run (its plain version, counted)
@@ -24,14 +33,18 @@ import torch
 
 from hgtpu.align import GeneAligner as JaxAligner
 from hgtpu.db import build_gene_ref
-from hgtpu.db.catalog import GeneRef as JaxGeneRef, VT_DELETION
+from hgtpu.db.catalog import (GeneRef as JaxGeneRef, VT_DELETION,
+                               VT_INSERTION)
 from hgtpu.ops.banded_dp import BandedDPTables as JaxTables
 from hgtpu.sim import simulate_reads
 from hgtpu.utils.dna import encode_seq
 from hgtpu_torch.align import GeneAligner
 from hgtpu_torch.ops import banded_dp
-from hgtpu_torch.ops.banded_dp import (DNEG, DPOS, INF, BandedDPTables,
-                                       banded_costs, pack_rows)
+from hgtpu_torch.ops.banded_dp import (
+    D, DNEG, DPOS, IL, INF, NI, NITER, OFF, PL_DEL, PL_DEL_ANY, PL_INS,
+    PL_OVER, PLANE_PAD, BandedDPTables, banded_costs, banded_costs_bits,
+    banded_costs_plain, banded_costs_warp, dp_plan, length_mask, pack_rows,
+    plane_words)
 from tests.synth import make_gene_msa
 from tests.test_torch_db import carried
 
@@ -246,6 +259,259 @@ def test_banded_costs_checks_its_inputs():
     with pytest.raises(ValueError):
         banded_costs(tab.table[:, :3].contiguous(), reads, lens, lens,
                      tab.P, 2)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_bit_planes_unpack_to_hgtpu(kind):
+    gene = gene_of(kind)
+    want = JaxTables(gene)
+    free, del_has, ins_len, _seq, over = (np.asarray(a) for a in want.arrays)
+    nd = len(want.del_lens)
+    tab = BandedDPTables(carried(gene), "cpu")
+    planes = tab.planes.numpy()
+    assert planes.shape == (PL_DEL + nd, plane_words(tab.P))
+    bits = np.unpackbits(planes.view(np.uint8), axis=1,
+                         bitorder="little").astype(bool)
+    m = min(bits.shape[1] - PLANE_PAD, free.shape[0])
+    assert m >= OFF + tab.P
+    # nothing before row 0, nothing past the rows the planes hold
+    assert not bits[:, :PLANE_PAD].any()
+    assert not bits[:, PLANE_PAD + m:].any()
+    for a in (free, del_has, ins_len, over):
+        assert not a[m:].any()
+    rows = bits[:, PLANE_PAD:PLANE_PAD + m]
+    assert np.array_equal(rows[:8].T, free[:m])
+    assert np.array_equal(rows[PL_OVER], over[:m])
+    assert np.array_equal(rows[PL_INS], (ins_len[:m] > 0).any(1))
+    assert np.array_equal(rows[PL_DEL:].T, del_has[:m, :nd])
+    assert np.array_equal(rows[PL_DEL_ANY], del_has[:m, :nd].any(1))
+    if kind == "deletion":
+        assert nd >= 3 and rows[PL_DEL_ANY].any()
+    if kind == "insertion":
+        assert rows[PL_INS].any()
+    if kind == "wide":
+        assert rows[PL_OVER].any()
+
+
+BAND = (1 << D) - 1
+
+
+def _window(planes, k, idx):
+    """Bits idx .. idx + 32 of plane k per entry, read as the kernel reads
+    them: two 64-bit words and a funnel shift (int64 shifts are
+    arithmetic, so the low word's is masked)."""
+    w = (idx >> 6).clamp(0, planes.shape[1] - 2)
+    s = idx & 63
+    lo, hi = planes[k][w], planes[k][w + 1]
+    sh = (64 - s).clamp(max=63)
+    lo_s = torch.where(s == 0, lo, (lo >> s) & ((torch.ones_like(s) << sh)
+                                                - 1))
+    hi_s = torch.where(s == 0, torch.zeros_like(hi), hi << sh)
+    return (lo_s | hi_s) & BAND
+
+
+def _mask_model(tab, reads, lens, starts, max_novel):
+    """The bit kernel's recurrence over [E] in torch int64: every plane as
+    max_novel + 1 threshold masks (bit d of level k set when the cost at
+    diagonal d is <= k), the row flags read from tab.planes, catalog
+    insertions from tab.table at the set bits of the insertion window, the
+    closure stopping per entry once a relaxation changes nothing."""
+    NL = max_novel + 1
+    E, W = reads.shape
+    planes, table, P = tab.planes, tab.table.long(), tab.P
+    ins_mask = length_mask(tab.ins_lens)
+    rd = torch.from_numpy(reads).long()
+    codes = torch.cat([rd & 0xFF, torch.full((E, IL), 6)], 1)
+    lens = torch.from_numpy(lens).long()
+    starts = torch.from_numpy(starts).long()
+    zero = torch.zeros(E, dtype=torch.int64)
+    cur = [torch.full((E,), 1 << DNEG) for _ in range(NL)]
+    pend = [[zero] * NL for _ in range(IL)]
+    fin = torch.full((E,), INF)
+    ov = torch.zeros(E, dtype=torch.bool)
+    for i in range(W + 1):
+        cur = [c | p for c, p in zip(cur, pend[0])]
+        pend = pend[1:] + [[zero] * NL]
+        f = torch.full((E,), INF)
+        for j in reversed(range(NL)):
+            f = torch.where(cur[j] != 0, j, f)
+        fin = torch.where(lens == i, f, fin)
+        live = i < lens
+        ind = live & (i > 0)
+        ch = rd[:, min(i, W - 1)].clamp(0, 7)
+        base = starts + i - DNEG
+        dlo = (-base).clamp(0, D)
+        dhi = (P - base).clamp(0, D)
+        n_ok = (dhi - dlo).clamp(min=0)
+        pok = ((torch.ones_like(n_ok) << n_ok) - 1) << dlo
+        idx = base + OFF + PLANE_PAD
+        fr = torch.stack([_window(planes, b, idx) for b in range(8)])[
+            ch, torch.arange(E)] & pok
+        on = ind & (pok != 0)
+        ov |= on & ((cur[-1] & pok & _window(planes, PL_OVER, idx)) != 0)
+
+        # closure: relax until nothing changes, at most NITER + 1 times
+        def relax(c):
+            gate = torch.where(on, c[-1] & pok, zero)
+            nw = list(c)
+            o = torch.zeros(E, dtype=torch.bool)
+            for k, L in enumerate(tab.del_lens):
+                has = gate & _window(planes, PL_DEL + k, idx)
+                o |= (has >> (D - L)) != 0
+                nw = [n | (((cj & has) << L) & BAND) for n, cj in zip(nw, c)]
+            ng = gate & ~fr
+            for L in (1, 2):
+                o |= (ng >> (D - L)) != 0
+                for j in range(L, NL):
+                    nw[j] = nw[j] | (((c[j - L] & ng) << L) & BAND)
+            return nw, o
+
+        c, done = cur, ~on
+        for it in range(NITER + 1):
+            nw, o = relax(c)
+            ov |= o & ~done
+            diff = torch.zeros(E, dtype=torch.bool)
+            for a, b in zip(nw, c):
+                diff |= a != b
+            if it == NITER:
+                ov |= diff & ~done
+                break
+            c = [torch.where(~done & diff, a, b) for a, b in zip(nw, c)]
+            done = done | ~diff
+        cur = c
+
+        # catalog insertions: the set bits of the gated insertion window
+        win4 = sum(codes[:, i + k] << (8 * k) for k in range(IL))
+        cand = torch.where(on, cur[-1] & pok & _window(planes, PL_INS, idx),
+                           zero)
+        for d in range(D):
+            sel = ((cand >> d) & 1) == 1
+            if not sel.any():
+                continue
+            row = table[(base + OFF + d).clamp(0, len(table) - 1)]
+            for s in range(NI):
+                il = (row[:, 0] >> (9 + 3 * s)) & 7
+                seq = row[:, 2 + s] & 0xFFFFFFFF
+                nbytes = (torch.ones_like(il) << (8 * il.clamp(max=4))) - 1
+                ok = (sel & (il > 0) & (((ins_mask >> il) & 1) == 1)
+                      & (i + il <= lens) & (((win4 ^ seq) & nbytes) == 0))
+                ov |= ok & (d < il)
+                for L in range(1, IL + 1):
+                    hit = ok & (il == L) & (d >= L)
+                    pend[L - 1] = [p | torch.where(hit, (cj & (1 << d)) >> L,
+                                                   zero)
+                                   for p, cj in zip(pend[L - 1], cur)]
+
+        # consume, novel insertions
+        miss = pok & ~fr
+        nx = [cur[0] & fr] + [(cur[j] & fr) | (cur[j - 1] & miss)
+                              for j in range(1, NL)]
+        ng = torch.where(ind, cur[-1] & miss, zero)
+        for L in (1, 2):
+            fits = i + L <= lens
+            ov |= fits & ((ng & ((1 << L) - 1)) != 0)
+            for j in range(L, NL):
+                pend[L - 1][j] = pend[L - 1][j] | torch.where(
+                    fits, (cur[j - L] & ng) >> L, zero)
+        cur = [torch.where(live, a, b) for a, b in zip(nx, cur)]
+    return fin.to(torch.int32), ov
+
+
+def _edge_gene():
+    """A random 240 bp backbone with a catalog deletion of 24 at 60 and a
+    catalog insertion of GATC at 150: reads through either, proposed a
+    few diagonals off, put finite states on the band's edges."""
+    rng = np.random.default_rng(3)
+    bb = "".join("ACGT"[c] for c in rng.integers(0, 4, 240))
+    return JaxGeneRef(
+        gene="X", backbone_name="X*BB", backbone=bb,
+        allele_names=["X*A", "X*B", "X*C"], var_ids=["hv0", "hv1"],
+        var_type=np.array([VT_DELETION, VT_INSERTION], np.int8),
+        var_pos=np.array([60, 150], np.int32),
+        var_len=np.array([24, 4], np.int32),
+        var_data=["24", "GATC"], var_freq=np.array([30.0, 30.0], np.float32),
+        links=np.array([[False, True, False], [False, False, True]]),
+        exons=[(0, len(bb) - 1)], primary_exons=[(0, len(bb) - 1)],
+        haplotypes=[])
+
+
+def _edge_entries(gene):
+    """Reads through the deletion and the insertion (and a plain one),
+    each proposed at drifts -10..10 from its true start."""
+    bb = gene.backbone
+    rows = []
+    for read, start in ((bb[30:60] + bb[84:130], 30),
+                        (bb[120:150] + "GATC" + bb[150:190], 120),
+                        (bb[100:150], 100)):
+        for off in range(-10, 11):
+            rows.append((encode_seq(read), start + off))
+    W = max(len(r) for r, _ in rows)
+    reads = np.full((len(rows), W), 4, np.int8)
+    for i, (r, _s) in enumerate(rows):
+        reads[i, :len(r)] = r
+    return (reads, np.array([len(r) for r, _ in rows], np.int32),
+            np.array([s for _, s in rows], np.int32))
+
+
+@pytest.mark.parametrize("kind", KINDS + ("edges",))
+@pytest.mark.parametrize("max_novel", [0, 2, 7])
+def test_mask_model_equals_plain_and_hgtpu(kind, max_novel):
+    """The bit kernel's recurrence, held exactly (cost and over) against
+    the plain version and hgtpu on the same entries, with lengths 0, -1,
+    past W and 1 among them; on the edge gene, entries that overflow by a
+    catalog deletion past the top edge or a catalog insertion past the
+    bottom one."""
+    if kind == "edges":
+        gene = _edge_gene()
+        reads, lens, starts = _edge_entries(gene)
+    else:
+        gene = gene_of(kind)
+        reads, lens, starts = entries_of(gene, {"deletion": 31,
+                                                "insertion": 41,
+                                                "wide": 51}[kind])
+        lens[:4] = (0, -1, reads.shape[1] + 7, 1)
+    jc, jo = JaxTables(gene).costs(reads, lens, starts, max_novel)
+    jc, jo = np.asarray(jc), np.asarray(jo)
+    tab = BandedDPTables(carried(gene), "cpu")
+    pc, po = banded_costs_plain(
+        tab.table, *(torch.from_numpy(x) for x in (reads, lens, starts)),
+        tab.P, max_novel, tab.del_lens, tab.ins_lens)
+    mc, mo = _mask_model(tab, reads, lens, starts, max_novel)
+    assert np.array_equal(pc.numpy(), jc) and np.array_equal(po.numpy(), jo)
+    assert np.array_equal(mc.numpy(), jc)
+    assert np.array_equal(mo.numpy(), jo)
+    # not vacuous: costs at the budget and beyond it both occur
+    assert (jc <= max_novel).any() and (jc >= INF).any()
+    if kind in ("deletion", "insertion") and max_novel == 7:
+        assert jo.any() and (jc > 2).any()
+    if kind == "edges" and max_novel:
+        # the deletion's entries reach the top edge from one diagonal off;
+        # the insertion's need five novel insertions to reach the bottom
+        assert jo[:21].any() and (jo[21:42].any() or max_novel < 5)
+
+
+@pytest.mark.parametrize("max_novel,kernel", [(0, "bits"), (2, "bits"),
+                                              (7, "bits"), (8, "warp"),
+                                              (30, "warp")])
+def test_dp_plan(max_novel, kernel):
+    """The kernel follows the budget alone; on CPU tensors each kernel's
+    wrapper and banded_costs answer with the plain version and count no
+    launch."""
+    assert dp_plan(max_novel) == kernel
+    tab = BandedDPTables(carried(gene_of("insertion")), "cpu")
+    reads, lens, starts = (torch.from_numpy(x) for x in
+                           entries_of(tab.gene, 7, n=12))
+    args = (reads, lens, starts, tab.P, max_novel, tab.del_lens,
+            tab.ins_lens)
+    want = banded_costs_plain(tab.table, *args)
+    before = (banded_costs.launches, banded_costs_bits.launches,
+              banded_costs_warp.launches)
+    for got in (banded_costs(tab.table, *args, planes=tab.planes),
+                banded_costs_bits(tab.table, tab.planes, *args),
+                banded_costs_warp(tab.table, *args)):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (banded_costs.launches, banded_costs_bits.launches,
+            banded_costs_warp.launches) == before
 
 
 class _count_plain:

@@ -307,29 +307,114 @@ def _dp_entries(gene, seed, n, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind,max_novel,n", [
-    ("deletion", 2, 1001), ("insertion", 2, 515), ("deletion", 30, 301),
-    ("insertion", 30, 33), ("insertion", 0, 64)])
-def test_dp_kernel_equals_plain(cuda, kind, max_novel, n):
-    """The banded DP kernel on the card, one launch counted, bitwise
-    equal to its plain version on the same tensors (cost and over)."""
+@pytest.mark.parametrize("kernel,kind,max_novel,n", [
+    ("bits", "deletion", 2, 1001), ("bits", "insertion", 2, 515),
+    ("bits", "insertion", 0, 64), ("bits", "deletion", 7, 301),
+    ("bits", "insertion", 7, 129), ("warp", "deletion", 30, 301),
+    ("warp", "insertion", 30, 33)])
+def test_dp_kernel_equals_plain(cuda, kernel, kind, max_novel, n):
+    """The banded DP kernel dp_plan picks for the budget (the bit kernel
+    at 0-7, the warp kernel past it) on the card, one launch counted on
+    it and none on the other, bitwise equal to its plain version on the
+    same tensors (cost and over)."""
     from hgtpu_torch.ops.banded_dp import (BandedDPTables, banded_costs,
-                                           banded_costs_plain)
+                                           banded_costs_bits,
+                                           banded_costs_plain,
+                                           banded_costs_warp, dp_plan)
 
+    assert dp_plan(max_novel) == kernel
     tab = BandedDPTables(_dp_gene(kind), cuda)
     reads, lens, starts = _dp_entries(tab.gene, n + max_novel, n, cuda)
     args = (tab.table, reads, lens, starts, tab.P, max_novel,
             tab.del_lens, tab.ins_lens)
-    before = banded_costs.launches
-    cost, over = banded_costs(*args)
+    before = (banded_costs.launches, banded_costs_bits.launches,
+              banded_costs_warp.launches)
+    cost, over = banded_costs(*args, planes=tab.planes)
     torch.cuda.synchronize()
-    assert banded_costs.launches == before + 1
+    bits = int(kernel == "bits")
+    assert (banded_costs.launches, banded_costs_bits.launches,
+            banded_costs_warp.launches) == \
+        (before[0] + 1, before[1] + bits, before[2] + 1 - bits)
     want_c, want_o = banded_costs_plain(*args)
     assert torch.equal(cost, want_c)
     assert torch.equal(over, want_o)
     assert (want_c <= max_novel).any()
-    if max_novel == 30:
+    if max_novel >= 7:
         assert want_o.any()
+
+
+@pytest.mark.cuda
+def test_dp_warp_kernel_at_small_budgets(cuda):
+    """The warp kernel holds at the bit kernel's budgets too (chip_smoke
+    times the two on the same operands)."""
+    from hgtpu_torch.ops.banded_dp import (BandedDPTables, banded_costs_plain,
+                                           banded_costs_warp)
+
+    tab = BandedDPTables(_dp_gene("insertion"), cuda)
+    reads, lens, starts = _dp_entries(tab.gene, 5, 400, cuda)
+    for b in (0, 2, 7):
+        args = (tab.table, reads, lens, starts, tab.P, b, tab.del_lens,
+                tab.ins_lens)
+        got = banded_costs_warp(*args)
+        want = banded_costs_plain(*args)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _tall_gene(P, seed):
+    """A random backbone of P bases with SNPs every ~37, insertions of 1-4
+    every ~500 and catalog deletions of every length 1-24 (the band's
+    widest): 35 bit planes, so P = 20,000 stages them in dynamic shared
+    memory past 48 KB and P = 60,000 reads them from device memory."""
+    from hgtpu_torch.db.catalog import (GeneRef, VT_DELETION, VT_INSERTION,
+                                        VT_SINGLE)
+
+    rng = np.random.default_rng(seed)
+    bb = "".join("ACGT"[c] for c in rng.integers(0, 4, P))
+    var = []
+    for p in range(20, P - 40, 37):
+        var.append((VT_SINGLE, p, 1, "ACGT"[(int("ACGT".index(bb[p])) + 1)
+                                            % 4]))
+    for k, p in enumerate(range(50, P - 40, 500)):
+        seq = "".join("ACGT"[c] for c in rng.integers(0, 4, 1 + k % 4))
+        var.append((VT_INSERTION, p, len(seq), seq))
+    for k, p in enumerate(range(31, P - 60, max(1, P // 96))):
+        L = 1 + k % 24
+        var.append((VT_DELETION, p, L, str(L)))
+    var.sort(key=lambda v: v[1])
+    V = len(var)
+    return GeneRef(
+        gene="T", backbone_name="T*BB", backbone=bb,
+        allele_names=["T*A", "T*B"], var_ids=["hv%d" % i for i in range(V)],
+        var_type=np.array([v[0] for v in var], np.int8),
+        var_pos=np.array([v[1] for v in var], np.int32),
+        var_len=np.array([v[2] for v in var], np.int32),
+        var_data=[v[3] for v in var],
+        var_freq=np.full(V, 20.0, np.float32),
+        links=rng.random((V, 2)) < 0.3, exons=[(0, P - 1)],
+        primary_exons=[(0, P - 1)], haplotypes=[])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [20000, 60000])
+def test_dp_bit_kernel_tall_genes(cuda, P):
+    """The bit kernel where its planes pass 48 KB (dynamic shared memory)
+    and 200 KB (device memory through L1): bitwise equal to the plain
+    version, with reads drawn across the whole backbone."""
+    from hgtpu_torch.ops.banded_dp import (BandedDPTables, banded_costs_bits,
+                                           banded_costs_plain)
+
+    tab = BandedDPTables(_tall_gene(P, P), cuda)
+    assert len(tab.del_lens) == 24
+    nbytes = tab.planes.numel() * 8
+    assert nbytes > (48 if P == 20000 else 200) * 1024
+    reads, lens, starts = _dp_entries(tab.gene, 3, 2000, cuda)
+    for b in (2, 7):
+        args = (tab.table, reads, lens, starts, tab.P, b, tab.del_lens,
+                tab.ins_lens)
+        got = banded_costs_bits(tab.table, tab.planes, *args[1:])
+        want = banded_costs_plain(*args)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert (want[0] <= b).any()
 
 
 @pytest.mark.cuda
