@@ -16,7 +16,12 @@ hgtpu_torch.pipeline.type_reads and checks them phase by phase:
     verify on the banded DP kernel beside the native verifier,
     haplotypes, the device fold on K2, the staged EM;
   * the pure-device programs: hgtpu_torch.entry.dryrun_multichip(1) and
-    ShardedTyper.call_pairs (ungated count, device EM).
+    ShardedTyper.call_pairs (ungated count, device EM);
+  * one sample over a family (hgtpu_torch.pipeline.type_family): the
+    panel router (one K1 product over every gene's PWM, a segment max),
+    the NH==1 rule, then each gene on the host engine (K1 placement, the
+    bit DP, K2 in the fold); ReadExtractor; linear typing and SAM in and
+    out; genome-scale extraction on the checkpointed FM index.
 
 Phases:
 
@@ -71,13 +76,37 @@ Phases:
              ShardedTyper(em_iters=300).call_pairs on the scale panel
              (tests/test_hla_scale.py's indel-carrying truth): truth
              called, totals, n_used and punt equal to the port's CPU run
+  family     tests/synth.make_family's six genes (A, B, C, DQA1, DQB1,
+             DRB1) x 200 alleles x 3.5 kb through build_catalog_from_msa,
+             a heterozygous truth pair per gene (simulate_interval=2) and
+             2,000 background pairs from the flanks (~21 k pairs):
+             type_family on the card (router on) equals the port's CPU
+             run gene by gene and field by field, truths on top; warm
+             wall and reads/s; ReadExtractor equals its CPU run
+  panel      K1 at the router's shape (N = 2 x the mate batch, P1 the
+             whole panel: 6 x (512 + ~3.5 k) + 512 rows - m + 1) at m =
+             128 (the family run's operands) and m = 512 (600-bp reads,
+             clipped as gene_max clips them), exact against the plain
+             version; timed beside it and one torch.mm; the float32
+             output's size; gene_max on the card equals the CPU's
+  linear/sam type_reads_linear on gene A and type_from_sam of gene A's
+             family SAM (written by type_family's sam_out) equal the CPU
+  extract    build_genotype_genome of the family genome plus a random
+             16 Mb chromosome (native SA-IS), GenomeExtractor with the
+             checkpointed FM index on the card; 100,000 single-end 100-bp
+             reads cut from it route as the CPU run of the same index
+             routes them; FM search time, calls and device kernels;
+             reads/s; the family's own pairs extracted and typed, truths
+             on top
   proof      launch counts of each path's runs (counts set to 0 just
              before the path, read just after): K1 > 0 on both paths, K2
              > 0 on the host path and on prod-scale whenever its rescue
              reached the fold, the bit DP kernel > 0 on the host path and
              in the prod-scale rescue and the warp DP kernel 0 on both
-             paths; the native verifier loaded; neither jax nor hgtpu
-             (the JAX package) ever imported
+             paths; on the family path K1 = the router's 2 launches + the
+             per-gene placements, K2 and the bit DP kernel > 0; the native
+             library loaded; neither jax nor hgtpu (the JAX package) ever
+             imported
 
 Every failure raises: nothing is caught and carried on, and there is no
 CPU fallback.  Exits non-zero without a CUDA device or without the repo
@@ -88,8 +117,9 @@ plain_ms and library_ms (null where no torch call computes the function)
 are device times of one call (CUDA-graph replay: the host's cost of a
 wrapped call, tens of microseconds, would swamp a small kernel),
 bound_ms / bound_by the least time the card could take for the same
-work, launches the main path's count, max_abs_err over every shape
-checked.  "kernels" lists the kernels of the path; "off_path" the wide
+work, launches the main path's count (the family path's for the K1
+records at the router's shape, "path": "family"), max_abs_err over every
+shape checked.  "kernels" lists the kernels of the path; "off_path" the wide
 K2 variant, which no table of the path takes, and the warp DP kernel,
 which no budget of the path takes.
 """
@@ -470,6 +500,407 @@ def dryrun_phase(big, dev):
         "wall card %.2f s, CPU %.2f s"
         % (t_dry, len(r1), truth, prob[top], n_used, int(punt.sum()),
            float(np.abs(prob - c_prob).max()), walls["card"], walls["cpu"]))
+
+
+FAMILY_GENES = ("A", "B", "C", "DQA1", "DQB1", "DRB1")
+
+
+def build_family(genes=FAMILY_GENES, n_alleles=200, length=3500,
+                 interval=2, n_bg=2000, seed=21):
+    """One sample over an HLA-like family: tests/synth.make_family's
+    genes through the port's build_catalog_from_msa, a heterozygous truth
+    pair per gene (reads every `interval` bases, named by gene so that
+    mates group per gene) and n_bg background pairs cut from the flanks
+    between the loci, as tests/test_family.py:55-62 cuts them.  Returns
+    (family, catalog, truths {gene: [a, b]}, reads per gene {gene:
+    (reads_1, reads_2)}, reads_1, reads_2)."""
+    import numpy as np
+    from synth import make_family
+    from hgtpu_torch.db import build_catalog_from_msa
+    from hgtpu_torch.sim import simulate_reads
+    from hgtpu_torch.utils.dna import revcomp
+
+    fam = make_family(genes=genes, n_alleles=n_alleles, length=length,
+                      seed=seed)
+    cat = build_catalog_from_msa("hla", {
+        g: dict(names=s["names"], rows=s["rows"], ref_allele=s["ref_allele"],
+                exons=s["exons"], primary_exon_idx=s["primary_exon_idx"])
+        for g, s in fam["specs"].items()}, min_var_freq=0.0)
+    rng = np.random.default_rng(seed)
+    truths, per_gene, reads_1, reads_2 = {}, {}, [], []
+    for k, (g, gene) in enumerate(cat.genes.items()):
+        pick = rng.choice(gene.n_alleles, 2, replace=False)
+        truths[g] = sorted(gene.allele_names[int(i)] for i in pick)
+        r1, r2, _ = simulate_reads(gene, truths[g],
+                                   simulate_interval=interval, seed=k)
+        per_gene[g] = ([(g + r.name, r.seq) for r in r1],
+                       [(g + r.name, r.seq) for r in r2])
+        reads_1 += per_gene[g][0]
+        reads_2 += per_gene[g][1]
+    genome = fam["genome"]
+    loci = sorted(fam["loci"].values())
+    for i in range(n_bg):
+        while True:
+            p = int(rng.integers(0, len(genome) - 260))
+            if all(p + 250 <= lo or p >= hi for lo, hi in loci):
+                break
+        frag = genome[p:p + 250]
+        reads_1.append(("bg%d" % i, frag[:100]))
+        reads_2.append(("bg%d" % i, revcomp(frag[-100:])))
+    return fam, cat, truths, per_gene, reads_1, reads_2
+
+
+def family_phase(cat, truths, reads_1, reads_2, dev, counts, reset,
+                 sam_prefix):
+    """type_family on `dev` (FamilyAligner routes through the panel
+    router: 6 genes) against the port's CPU run, gene by gene and field by
+    field, every truth pair on top; and ReadExtractor on the same reads
+    against its CPU run.  A warm-up run first (tables, per-gene typers;
+    it writes the per-gene SAM files under sam_prefix and records the
+    router's K1 operands), then the run whose launches are counted: the
+    counts are set to 0 just before it and read just after.  Returns
+    (launches, router operands {m: (pwm, reads)}, family aligner, the
+    K1 calls of that run: {"router": n, "gene": n})."""
+    import torch
+    from hgtpu_torch.align import FamilyAligner
+    from hgtpu_torch.align import panel
+    from hgtpu_torch.ops import placement as tplace
+    from hgtpu_torch.pipeline import ReadExtractor, type_family
+    from hgtpu_torch.utils.trace import TRACE
+
+    on_card = dev.type == "cuda"
+    fa = FamilyAligner(cat, device=dev)
+    if fa.router is None:
+        raise AssertionError("family: the router is off for %d genes"
+                             % len(cat.genes))
+    operands = {}
+    calls = {"router": 0, "gene": 0}
+    real_router, real_gene = panel.correlate_scores, tplace.correlate_scores
+
+    def router_spy(pwm, reads):
+        calls["router"] += 1
+        operands.setdefault(reads.shape[1], (pwm, reads))
+        return real_router(pwm, reads)
+
+    def gene_spy(pwm, reads):
+        calls["gene"] += 1
+        return real_gene(pwm, reads)
+
+    panel.correlate_scores = router_spy
+    tplace.correlate_scores = gene_spy
+    try:
+        t0 = time.perf_counter()
+        type_family(cat, reads_1, reads_2, family_aligner=fa,
+                    sam_out=sam_prefix)
+        if on_card:
+            torch.cuda.synchronize()
+        log("setup: family warm-up run on %s %.2f s"
+            % (dev.type, time.perf_counter() - t0))
+        reset()
+        calls.update(router=0, gene=0)
+        TRACE.reset()
+        t0 = time.perf_counter()
+        res = type_family(cat, reads_1, reads_2, family_aligner=fa)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts()
+        proof = dict(calls)
+        stages = TRACE.summary()
+    finally:
+        panel.correlate_scores = real_router
+        tplace.correlate_scores = real_gene
+    t0 = time.perf_counter()
+    ref = type_family(cat, reads_1, reads_2, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if list(res) != list(ref) or list(res) != list(cat.genes):
+        raise AssertionError("family: genes %s, CPU %s" % (list(res),
+                                                           list(ref)))
+    n_reads = len(reads_1) + len(reads_2)
+    for g in res:
+        same_result(res[g], ref[g], "family %s" % g)
+        check_truths(res[g], truths[g], "family %s" % g)
+    log("family: %d genes x %d alleles, %d pairs (%d reads): every gene "
+        "equals the CPU run, truths on top (%s); warm wall %.3f s, %.1f "
+        "reads/s (CPU run %.1f s); router K1 launches %d, per-gene "
+        "placements %d"
+        % (len(cat.genes), next(iter(cat.genes.values())).n_alleles,
+           len(reads_1), n_reads,
+           ", ".join("%s %.2f/%.2f" % (g, r.prob[0][1], r.prob[1][1])
+                     for g, r in res.items()),
+           wall, n_reads / wall, cpu_s, proof["router"], proof["gene"]))
+    top = sorted(((k, v["s"]) for k, v in stages.items() if "." in k),
+                 key=lambda kv: -kv[1])[:10]
+    log("family: TRACE stages of the warm run (s, nested): %s"
+        % ", ".join("%s %.4f" % kv for kv in top))
+    t0 = time.perf_counter()
+    routed = ReadExtractor({"hla": cat}, device=dev).extract(reads_1,
+                                                             reads_2)
+    ex_s = time.perf_counter() - t0
+    routed_cpu = ReadExtractor({"hla": cat}, device="cpu").extract(reads_1,
+                                                                   reads_2)
+    if routed != routed_cpu:
+        raise AssertionError("family: ReadExtractor on the card differs "
+                             "from the CPU run")
+    kept = {n for n, _ in routed.get("hla", ([], []))[0]}
+    n_bg = sum(n.startswith("bg") for n, _ in reads_1)
+    if sum(not n.startswith("bg") for n in kept) < 0.9 * (len(reads_1)
+                                                          - n_bg) \
+            or sum(n.startswith("bg") for n in kept) > 0.01 * n_bg:
+        raise AssertionError("family: ReadExtractor kept %d of %d gene "
+                             "pairs and %d of %d background pairs"
+                             % (sum(not n.startswith("bg") for n in kept),
+                                len(reads_1) - n_bg,
+                                sum(n.startswith("bg") for n in kept), n_bg))
+    log("family: ReadExtractor routed %d of %d pairs (%d background of "
+        "%d), equal to the CPU run; %.2f s with its set-up"
+        % (len(kept), len(reads_1), sum(n.startswith("bg") for n in kept),
+           n_bg, ex_s))
+    return launches, operands, fa, proof
+
+
+def panel_phase(router, cpu_router, operands, long_seqs, timer):
+    """K1 at the router's shape, m = 128 (the family run's operands) and
+    m = 512 (reads past the spacer, clipped as gene_max clips them),
+    against its plain version, exact; gene_max on the card against the
+    CPU's on 8,192 reads of each width; then the kernel, the plain
+    version and one torch.mm timed (timer = cuda_ms).  Returns the K1
+    records of both widths."""
+    import numpy as np
+    import torch
+    from hgtpu_torch.align import panel
+    from hgtpu_torch.ops.placement_kernel import (placement_scores,
+                                                  placement_scores_plain)
+
+    real = panel.correlate_scores
+
+    def spy(pwm, reads):
+        operands.setdefault(reads.shape[1], (pwm, reads))
+        return real(pwm, reads)
+
+    panel.correlate_scores = spy
+    try:
+        router.gene_max(long_seqs)
+    finally:
+        panel.correlate_scores = real
+    if sorted(operands) != [128, 512]:
+        raise AssertionError("panel: router widths %s, want 128 and 512"
+                             % sorted(operands))
+    short = long_seqs[:4096]
+    for width, seqs in ((128, [s[:100] for s in short] * 2),
+                        (512, short * 2)):
+        gm, lens = router.gene_max(seqs)
+        gm_c, lens_c = cpu_router.gene_max(seqs)
+        if not (np.array_equal(gm, gm_c) and np.array_equal(lens, lens_c)):
+            raise AssertionError("panel: gene_max on the card differs from "
+                                 "the CPU's at m=%d" % width)
+    records = []
+    for m in (128, 512):
+        pwm, reads = operands[m]
+        n, P1 = reads.shape[0], pwm.shape[0] - m + 1
+        out_gb = n * P1 * 4 / 1e9
+        got = placement_scores(pwm, reads)
+        want = placement_scores_plain(pwm, reads)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError("panel: K1 != plain at N=%d m=%d P1=%d, "
+                                 "max abs err %g" % (n, m, P1, err))
+        del want
+        lib = k1_library(pwm, reads)
+        lib_err = float((lib() - got).abs().max())
+        del got
+        ms = timer(lambda: placement_scores(pwm, reads), iters=5, warmup=1)
+        plain_ms = timer(lambda: placement_scores_plain(pwm, reads),
+                         iters=2, warmup=1)
+        lib_ms = timer(lib, iters=5, warmup=1)
+        del lib
+        nbytes = n * m + pwm.shape[0] * 5 * 4 + n * P1 * 4
+        ops = 2 * n * 5 * m * P1
+        b_ms, b_by = bound_ms(nbytes, ops, PEAK_BF16_S)
+        log("panel: K1 at the router's shape N=%d m=%d P1=%d (%d genes, "
+            "%.2f GB float32 output) exact; kernel %.4f ms (%.1f TFLOP/s, "
+            "output %.0f GB/s), plain %.4f ms, library torch.mm %.4f ms "
+            "(max abs err vs kernel %g); bound %.4f ms (%s), kernel at "
+            "%.1f %% of it"
+            % (n, m, P1, len(router.keys), out_gb, ms, ops / ms / 1e9,
+               n * P1 * 4 / ms / 1e6, plain_ms, lib_ms, lib_err, b_ms, b_by,
+               100 * b_ms / ms))
+        records.append(dict(
+            name="placement_scores", route="cuda",
+            source="hgtpu_torch/csrc/placement_scores.cu",
+            replaces="hgtpu/ops/placement_pallas.py:48", max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms,
+            library="torch.mm(onehot bf16 [N, 5m], windows bf16 [5m, P1], "
+                    "out_dtype=float32); max abs err vs the kernel %g"
+                    % lib_err,
+            shape="N=%d m=%d P1=%d (panel router, %d genes)"
+                  % (n, m, P1, len(router.keys)),
+            output_bytes=n * P1 * 4, path="family"))
+    return records
+
+
+def fm_cpu_copy(ex):
+    """The same GenomeExtractor with its FM index's tables on the CPU:
+    the CPU run of the port's FM search on the same index."""
+    import copy
+
+    cpu = copy.copy(ex)
+    cpu.fm = copy.copy(ex.fm)
+    for name in ("_C_dev", "_ckpt_dev", "_bwt_dev", "_occ_dev"):
+        t = getattr(ex.fm, name)
+        setattr(cpu.fm, name, None if t is None else t.cpu())
+    cpu.fm.device = cpu.fm._C_dev.device
+    return cpu
+
+
+def extract_phase(cat, fam, truths, reads_1, reads_2, dev, out_prefix,
+                  n_route=100_000, chr_len=16_000_000, seed=7):
+    """The genome-scale path: build_genotype_genome of the family genome
+    plus a random chromosome chrR of chr_len bases, GenomeExtractor over
+    it (the checkpointed FM index on `dev`), n_route single-end 100-bp
+    reads cut from the spliced genome as bench.py cuts them, routed on
+    the card and by the CPU run of the same index, equal; then the
+    family's own pairs extracted and typed with type_family, truths on
+    top."""
+    import numpy as np
+    import torch
+    from hgtpu_torch.db import build_genotype_genome
+    from hgtpu_torch.native import have_native
+    from hgtpu_torch.ops.fm import FMIndex
+    from hgtpu_torch.pipeline import GenomeExtractor, type_family
+
+    if not have_native():
+        raise AssertionError("extract: the native SA-IS library is not "
+                             "loaded (make -C native)")
+    on_card = dev.type == "cuda"
+    rng = np.random.default_rng(seed)
+    chr_r = np.frombuffer(b"ACGT", np.uint8)[
+        rng.integers(0, 4, chr_len)].tobytes().decode()
+    for g, (lo, hi) in fam["loci"].items():
+        gene = cat.genes[g]
+        gene.chrom, gene.chrom_left, gene.chrom_right = "chrS", lo, hi
+    t0 = time.perf_counter()
+    spliced, offsets = build_genotype_genome(
+        {"chrS": fam["genome"], "chrR": chr_r}, {"hla": cat}, out_prefix)
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ex = GenomeExtractor(spliced, offsets, {"hla": cat}, device=dev)
+    t_index = time.perf_counter() - t0
+    n1 = ex.fm.n + 1
+    log("setup: genotype genome %d bases (chrS %d + chrR %d) built in "
+        "%.2f s; checkpointed FM index (native SA-IS) on %s in %.2f s: "
+        "n+1 = %d, %d blocks of 64"
+        % (sum(map(len, spliced.values())), len(spliced["chrS"]),
+           len(spliced["chrR"]), t_build, dev.type, t_index, n1,
+           ex.fm._bwt_dev.shape[0]))
+    # reads cut as bench.py:175-181 cuts them, from the whole spliced
+    # genome (both chromosomes and the N between them)
+    L = 100
+    text = np.frombuffer(b"ACGTN.", np.uint8)[ex.codes]
+    pos = rng.integers(0, len(text) - L, n_route)
+    cut = text[pos[:, None] + np.arange(L)[None, :]]
+    reads = [("q%d" % i, cut[i].tobytes().decode()) for i in range(n_route)]
+    timing = {"s": 0.0, "calls": 0, "queries": 0}
+    real = FMIndex.search_batch
+
+    def timed(self, queries):
+        t = time.perf_counter()
+        out = real(self, queries)       # ends in a fetch: synchronised
+        timing["s"] += time.perf_counter() - t
+        timing["calls"] += 1
+        timing["queries"] += len(queries)
+        return out
+
+    ex.extract(reads[:1000], None)      # warm-up
+    FMIndex.search_batch = timed
+    try:
+        t0 = time.perf_counter()
+        routed = ex.extract(reads, None)
+        wall = time.perf_counter() - t0
+    finally:
+        FMIndex.search_batch = real
+    cpu = fm_cpu_copy(ex)
+    t0 = time.perf_counter()
+    routed_cpu = cpu.extract(reads, None)
+    cpu_s = time.perf_counter() - t0
+    if routed != routed_cpu:
+        raise AssertionError("extract: the routed reads differ between the "
+                             "card's FM search and the CPU's")
+    # device kernels of one search of the same queries
+    seeds = timing["queries"]
+    n_kernels, dev_ms = None, None
+    if on_card:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        k = ex.seed_len
+        q = ex.codes[rng.integers(0, n1 - k - 1, seeds)[:, None]
+                     + np.arange(k)[None, :]]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ex.fm.search_batch(q)
+            torch.cuda.synchronize()
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        n_kernels = len(kern)
+        dev_ms = sum(e.device_time for e in kern) / 1e3
+    log("extract: %d single-end reads routed in %.3f s (%.1f reads/s), "
+        "equal to the CPU run of the same index (%.1f s); routed %s; FM "
+        "search %d calls, %d seed queries of %d bases, %.4f s on the host "
+        "clock (launch, loop and fetch); one search of %d queries: %s "
+        "device kernels, %s ms device time"
+        % (n_route, wall, n_route / wall, cpu_s,
+           {f: len(v[0]) for f, v in routed.items()}, timing["calls"],
+           seeds, ex.seed_len, timing["s"], seeds, n_kernels,
+           "%.4f" % dev_ms if dev_ms is not None else "not measured"))
+    fam_routed = ex.extract(reads_1, reads_2)
+    if "hla" not in fam_routed:
+        raise AssertionError("extract: no family read was routed")
+    got = fam_routed["hla"]
+    n_bg = sum(n.startswith("bg") for n, _ in reads_1)
+    n_gene = sum(not n.startswith("bg") for n, _ in got[0])
+    if n_gene < 0.8 * (len(reads_1) - n_bg):
+        raise AssertionError("extract: %d of %d gene pairs routed"
+                             % (n_gene, len(reads_1) - n_bg))
+    res = type_family(cat, *got, device=dev)
+    for g, r in res.items():
+        check_truths(r, truths[g], "extract %s" % g)
+    log("extract: the family's %d pairs: %d gene pairs and %d of %d "
+        "background pairs routed; type_family on them: truths on top in "
+        "every gene" % (len(reads_1), n_gene,
+                        sum(n.startswith("bg") for n, _ in got[0]), n_bg))
+
+
+def linear_sam_phase(cat, truths, per_gene, dev, sam_path, n_pairs=1000):
+    """type_reads_linear on gene A (n_pairs of its truth pairs) and
+    type_from_sam of gene A's family SAM, on `dev`, each equal to the
+    CPU run."""
+    import dataclasses
+    from hgtpu_torch.pipeline import type_from_sam, type_reads_linear
+    from hgtpu_torch.typer import TypingOptions
+
+    gene = cat.genes["A"]
+    r1, r2 = (r[:n_pairs] for r in per_gene["A"])
+    opts = TypingOptions(linear_typing=True)
+    got = type_reads_linear(gene, r1, r2, opts, device=dev)
+    want = type_reads_linear(gene, r1, r2, opts, device="cpu")
+    if dataclasses.asdict(got) != dataclasses.asdict(want):
+        raise AssertionError("linear: type_reads_linear on the card differs "
+                             "from the CPU run")
+    check_probs(got, "linear")
+    opts = TypingOptions(simulation=True)
+    got_s = type_from_sam(gene, sam_path, opts, device=dev)
+    want_s = type_from_sam(gene, sam_path, opts, device="cpu")
+    same_result(got_s, want_s, "sam")
+    check_truths(got_s, truths["A"], "sam")
+    rank = [a for a, _ in got.prob]
+    log("linear: type_reads_linear on gene A, %d pairs: %d classes, top %s, "
+        "truths at ranks %s, equal to the CPU run; sam: type_from_sam of "
+        "gene A's family SAM (%d reads): equal to the CPU run, truths on top"
+        % (len(r1), len(got.cmpt), got.prob[0][0],
+           [rank.index(t) if t in rank else None for t in truths["A"]],
+           got_s.num_reads))
 
 
 def main():
@@ -1001,9 +1432,41 @@ def main():
     # ---- 8. the pure-device programs ---- #
     dryrun_phase(big, dev)
 
-    # ---- 9. proof of path ---- #
+    # ---- 9. one sample over a family: type_family through the panel
+    # router (counts set to 0 just before its run, read just after), K1
+    # at the router's shape, linear typing and SAM, genome extraction ---- #
+    from hgtpu_torch.align import PanelRouter
+    from hgtpu_torch.native import have_native
+
+    t0 = time.perf_counter()
+    fam, cat, fam_truths, per_gene, f1, f2 = build_family()
+    log("setup: family %s, %d alleles x ~%d bp each, %d pairs with %d "
+        "background (%.1f s)" % (",".join(cat.genes),
+                                 next(iter(cat.genes.values())).n_alleles,
+                                 len(next(iter(cat.genes.values())).backbone),
+                                 len(f1), 2000, time.perf_counter() - t0))
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    fam_launches, operands, fa, fam_proof = family_phase(
+        cat, fam_truths, f1, f2, dev, counts, reset,
+        os.path.join(work, "family"))
+    rng = np.random.default_rng(23)
+    pos = rng.integers(0, len(fam["genome"]) - 600, len(f1))
+    long_seqs = [fam["genome"][p:p + 600] for p in pos]
+    cpu_router = PanelRouter([(g, cat.genes[g]) for g in cat.genes],
+                             device="cpu")
+    kernels.extend(panel_phase(fa.router, cpu_router, operands, long_seqs,
+                               cuda_ms))
+    del operands, fa, cpu_router, long_seqs
+    linear_sam_phase(cat, fam_truths, per_gene, dev,
+                     os.path.join(work, "family.A.sam"))
+    extract_phase(cat, fam, fam_truths, f1, f2, dev,
+                  os.path.join(work, "gg"))
+
+    # ---- 10. proof of path ---- #
     for rec in kernels + off_path:
-        rec["launches"] = prod_launches[rec["name"]]
+        rec["launches"] = (fam_launches if rec.get("path") == "family"
+                           else prod_launches)[rec["name"]]
     for name in ("placement_scores", "and_reduce_slab", "banded_dp_bits"):
         if host_launches[name] <= 0:
             raise AssertionError("%s never launched on the host-engine path"
@@ -1026,15 +1489,31 @@ def main():
                              "K2 never launched")
     if prod_launches["and_reduce_slab"] <= 0:
         raise AssertionError("K2 never launched on the production path")
+    if fam_proof["router"] != 2 or fam_proof["gene"] <= 0 \
+            or fam_launches["placement_scores"] \
+            != fam_proof["router"] + fam_proof["gene"]:
+        raise AssertionError("family: K1 launched %d times, want the "
+                             "router's 2 (one per mate) + %d per-gene "
+                             "placements" % (fam_launches["placement_scores"],
+                                             fam_proof["gene"]))
+    for name in ("and_reduce_slab", "banded_dp_bits"):
+        if fam_launches[name] <= 0:
+            raise AssertionError("%s never launched on the family path"
+                                 % name)
+    if not have_native():
+        raise AssertionError("the native library (SA-IS, verifier) is not "
+                             "loaded")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     if "hgtpu" in sys.modules:
         raise AssertionError("the JAX package hgtpu was imported")
     log("proof: launches host path %s, production path %s (prod-scale %s; "
         "rescue reached the fold: %s; device verify in the rescue: %d "
-        "calls); jax imported: no; hgtpu imported: no; native verifier "
-        "loaded: yes" % (host_launches, prod_launches, scale_launches,
-                         scale_fold, scale_dp))
+        "calls), family path %s (K1: the router %d + per-gene placements "
+        "%d); jax imported: no; hgtpu imported: no; native library loaded: "
+        "yes" % (host_launches, prod_launches, scale_launches, scale_fold,
+                 scale_dp, fam_launches, fam_proof["router"],
+                 fam_proof["gene"]))
     log("wall: chip_smoke %.1f s" % (time.perf_counter() - t_start))
 
     order = ("name", "route", "source", "replaces", "launches",

@@ -1,4 +1,4 @@
-# Copy of hgtpu/db/build.py, without build_catalog_from_msa (no caller here).
+# Copy of hgtpu/db/build.py.
 """Graph-reference compiler: MSF multiple alignments -> GeneRef catalogs.
 
 Re-implements the semantics of the reference's extract_vars
@@ -25,7 +25,7 @@ import bisect
 
 import numpy as np
 
-from .catalog import GeneRef, VT_SINGLE, VT_DELETION, VT_INSERTION
+from .catalog import GeneRef, VT_SINGLE, VT_DELETION, VT_INSERTION, Catalog
 
 # MSA char codes
 _A, _C, _G, _T, _DOT, _E, _N, _TILDE = range(8)
@@ -681,3 +681,24 @@ def _split_haplotypes(hap_set, keys, intra_gap):
             if s == len(h):
                 out.add(h[prev_s:s])
     return out
+
+
+def build_catalog_from_msa(family: str, gene_msas: dict, **kw) -> Catalog:
+    """gene_msas: gene -> dict(names=.., rows=.., ref_allele=.., exons=..,
+    primary_exon_idx=.., partial_names=..)."""
+    genes = {}
+    next_id = 0
+    for gene, spec in gene_msas.items():
+        ref, next_id = build_gene_ref(
+            gene,
+            spec["names"],
+            spec["rows"],
+            spec.get("ref_allele", spec["names"][0]),
+            exons_ref_coords=spec.get("exons", ()),
+            primary_exon_idx=spec.get("primary_exon_idx", ()),
+            base_var_id=next_id,
+            partial_names=spec.get("partial_names", ()),
+            **kw,
+        )
+        genes[gene] = ref
+    return Catalog(family=family, genes=genes)

@@ -253,3 +253,21 @@ def load_npz(path: str) -> Catalog:
         )
     return Catalog(family=meta["family"], genes=genes,
                    version=meta["version"])
+
+
+def _read_fasta(path: str) -> dict:
+    seqs = {}
+    name = None
+    parts = []
+    for line in open(path):
+        line = line.strip()
+        if line.startswith(">"):
+            if name is not None:
+                seqs[name] = "".join(parts)
+            name = line[1:].split()[0]
+            parts = []
+        else:
+            parts.append(line)
+    if name is not None:
+        seqs[name] = "".join(parts)
+    return seqs

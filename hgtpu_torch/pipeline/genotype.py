@@ -1,11 +1,14 @@
 """End-to-end genotyping orchestration (port of
-hgtpu/pipeline/genotype.py: type_reads and simulation_sweep).
+hgtpu/pipeline/genotype.py).
 
 Routes a read set to the production device program
 (parallel/production.py) or to the host engine (align read batches with
-the torch aligner, group mates, type with the device fold), as hgtpu
-does; for simulations it sweeps random allele draws checking that the
-truth ranks #1 — the reference's built-in self-test
+the torch aligner, group mates, type with the device fold), or to the
+linear path (exact FM seeds and a Hamming check against the allele
+panel), as hgtpu does; types every gene of a family from one read set
+(the panel router and the NH==1 rule, then the host engine per gene) or
+a gene from a SAM file; and for simulations sweeps random allele draws
+checking that the truth ranks #1 — the reference's built-in self-test
 (`--debug basic,test_size:N,set_seed:S`).
 """
 from __future__ import annotations
@@ -23,13 +26,34 @@ from ..typer.engine import TypingOptions, type_gene
 def _check_ported(opts):
     """Options whose paths are not ported yet raise instead of quietly
     running something else."""
-    if opts.linear_typing:
-        raise NotImplementedError(
-            "linear_typing needs ops/fm.py, which is not ported yet "
-            "(ROADMAP item 14)")
     if opts.assembly:
         raise NotImplementedError(
             "assembly is not ported yet (ROADMAP item 15)")
+
+
+def type_reads_linear(gene: GeneRef, reads_1, reads_2=None, opts=None,
+                      device=None):
+    """Linear-index typing (--aligner bowtie2 / --linear-index): exact
+    full-read matches against the concatenated allele panel feed the
+    compatibility classes straight into the EM, with no variant-graph
+    alignment (ref typing_core.py:1597-1648 consuming the -k 10 linear
+    hisat2/bowtie2 run of typing_common.py:995-1027).  The FM index's
+    tables live on `device`."""
+    from ..align.linear import LinearAligner
+    from ..typer.em import single_abundance
+    from ..typer.engine import GeneTypingResult
+
+    opts = opts or TypingOptions()
+    seqs = [s for _, s in reads_1] + [s for _, s in (reads_2 or [])]
+    la = LinearAligner(gene, device=device)
+    ranked, cmpt = la.type_linear(
+        seqs, max_mm=opts.num_mismatch if opts.num_mismatch > 0 else None)
+    prob = single_abundance(
+        cmpt, remove_low_abundance_allele=opts.remove_low_abundance_alleles)
+    return GeneTypingResult(
+        gene=gene.gene, num_reads=sum(n for _, n in cmpt.items()),
+        num_pairs=len(reads_1), counts=ranked, prob=prob, cmpt=cmpt,
+        exon_cmpt={}, primary_exon_cmpt={})
 
 
 def _take_device_path(opts, paired, device) -> bool:
@@ -62,6 +86,8 @@ def type_reads(gene: GeneRef, reads_1, reads_2=None, opts=None,
     if device is None and aligner is not None:
         device = aligner.device
     device = resolve_device(device)
+    if opts.linear_typing:
+        return type_reads_linear(gene, reads_1, reads_2, opts, device)
     if _take_device_path(opts, reads_2 is not None, device):
         from ..parallel.production import type_reads_device
 
@@ -84,6 +110,94 @@ def type_reads(gene: GeneRef, reads_1, reads_2=None, opts=None,
             by_read[read_id].append(a)
     return type_gene(gene, sorted(by_read.items(), key=lambda kv: kv[0]),
                      opts, device=device)
+
+
+def type_from_sam(gene: GeneRef, sam_path, opts=None, device=None):
+    """Type a gene from an existing SAM alignment file (the reference's
+    --alignment path, typing() with alignment_fname)."""
+    from ..align.sam import read_sam
+
+    opts = opts or TypingOptions()
+    groups = read_sam(gene, sam_path, opts.num_editdist)
+    return type_gene(gene, groups, opts, device=resolve_device(device))
+
+
+def type_family(catalog, reads_1, reads_2=None, locus_list=None, opts=None,
+                family_aligner=None, sam_out=None, threads=1, runlog=None,
+                device=None):
+    """Type every gene of a family from one read set.
+
+    Reads are assigned cross-gene by the NH==1 uniqueness rule
+    (FamilyAligner: the panel router on K1 for three genes or more); each
+    gene in locus_list is then typed independently with the host engine
+    (type_gene), as in hgtpu, whatever opts.device_typing says.
+    Ref: typing() per-gene loop (typing_core.py:370-1789).
+    Returns {gene: GeneTypingResult}.
+
+    When `runlog` (utils.runlog.RunLog) is given, a gene whose typing
+    raises is logged with its traceback and mapped to None instead of
+    aborting the family — the reference's per-sample error-log behavior
+    (hisatgenotype:670-680).  `device` defaults to the family aligner's
+    device, else to hgtpu_torch.default_device().
+    """
+    from ..align.family import FamilyAligner
+
+    opts = opts or TypingOptions()
+    _check_ported(opts)
+    if device is None and family_aligner is not None:
+        device = next(iter(family_aligner.aligners.values())).device
+    device = resolve_device(device)
+    if opts.linear_typing:
+        # linear path has no cross-gene routing stage: each gene's panel
+        # is matched exactly (multi-gene hits stay ambiguous and drop)
+        return {g: type_reads_linear(catalog.genes[g], reads_1, reads_2,
+                                     opts, device)
+                for g in (locus_list or list(catalog.genes))}
+    fa = family_aligner or FamilyAligner(catalog,
+                                         num_editdist=opts.num_editdist,
+                                         leftmost=opts.family == "codis",
+                                         device=device)
+    genes = locus_list or list(catalog.genes)
+    per_gene_1 = fa.align_batch([n for n, _ in reads_1],
+                                [s for _, s in reads_1], "L")
+    per_gene_2 = None
+    if reads_2:
+        per_gene_2 = fa.align_batch([n for n, _ in reads_2],
+                                    [s for _, s in reads_2], "R")
+
+    def run_gene(g):
+        try:
+            by_read = defaultdict(list)
+            batches = [per_gene_1[g]]
+            if per_gene_2:
+                batches.append(per_gene_2[g])
+            for alns in batches:
+                for a in alns:
+                    if a is None:
+                        continue
+                    by_read[a.read_id.split("|")[0]].append(a)
+            groups = sorted(by_read.items(), key=lambda kv: kv[0])
+            if sam_out:
+                from ..align.sam import write_sam
+                write_sam("%s.%s.sam" % (sam_out, g), catalog.genes[g],
+                          groups)
+            return g, type_gene(catalog.genes[g], groups, opts,
+                                device=device)
+        except Exception:
+            if runlog is None:
+                raise
+            runlog.exception("%s %s" % (catalog.family, g))
+            return g, None
+
+    if threads > 1 and len(genes) > 1:
+        # per-gene threading mirrors the reference's per-locus Pool fan-out
+        # (hisatgenotype:613-665); numpy/native stages release the GIL
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(max_workers=threads) as ex:
+            results = dict(ex.map(run_gene, genes))
+    else:
+        results = dict(run_gene(g) for g in genes)
+    return results
 
 
 def simulation_sweep(gene: GeneRef, test_size=5, seed=None, paired=True,

@@ -455,3 +455,77 @@ def test_aligner_device_verify_card_equals_cpu(cuda):
     want = cpu.align_batches(groups)
     for g, w in zip(got, want):
         assert [key(a) for a in g] == [key(a) for a in w]
+
+
+def _panel(n_genes=6, length=3500, n_alleles=8):
+    """A PanelRouter on the card and one on the CPU over one family."""
+    from hgtpu_torch.align import PanelRouter
+    from hgtpu_torch.db import build_catalog_from_msa
+    from synth import make_family
+
+    fam = make_family(genes=tuple("ABCDEF"[:n_genes]), n_alleles=n_alleles,
+                      length=length, seed=21)
+    cat = build_catalog_from_msa("hla", {
+        g: dict(names=s["names"], rows=s["rows"], ref_allele=s["ref_allele"])
+        for g, s in fam["specs"].items()}, min_var_freq=0.0)
+    refs = [(g, cat.genes[g]) for g in cat.genes]
+    return fam, PanelRouter(refs, device="cuda"), PanelRouter(refs,
+                                                              device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("read_len", [100, 600])
+def test_k1_at_the_panel_shape(cuda, read_len):
+    """K1 at the router's shape (the whole panel, no padding rows; m =
+    128, and 512 for reads past the spacer), exact; and gene_max on the
+    card equals the CPU's."""
+    fam, card, cpu = _panel()
+    rng = np.random.default_rng(read_len)
+    genome = fam["genome"]
+    pos = rng.integers(0, len(genome) - read_len, 3000)
+    seqs = [genome[p:p + read_len] for p in pos]
+    from hgtpu_torch.ops.placement import encode_reads
+
+    m = min(-(-read_len // 128) * 128, 512)
+    reads = torch.from_numpy(encode_reads(seqs, m)).to(cuda)
+    before = placement_scores.launches
+    got = placement_scores(card.pwm_concat, reads)
+    torch.cuda.synchronize()
+    assert placement_scores.launches == before + 1
+    assert got.shape == (len(seqs), card.pwm_concat.shape[0] - m + 1)
+    assert torch.equal(got, placement_scores_plain(card.pwm_concat, reads))
+    gm, lens = card.gene_max(seqs)
+    gm_cpu, lens_cpu = cpu.gene_max(seqs)
+    assert np.array_equal(gm, gm_cpu) and np.array_equal(lens, lens_cpu)
+    assert gm.max() >= min(read_len, 512) - 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("checkpoint", [False, True])
+@pytest.mark.parametrize("n", [64 * 200 - 1, 30011])
+def test_fm_search_card_equals_cpu(cuda, checkpoint, n):
+    """The FM search on the card equals the CPU's, full and checkpointed;
+    n + 1 = 12,800 = 200 x 64 rows reads block row nblk on the first
+    rank, which the port clamps (a gather there would be a device-side
+    assert)."""
+    from hgtpu_torch.ops.fm import FMIndex, pack_queries
+
+    rng = np.random.default_rng(n)
+    codes = rng.integers(0, 4, n).astype(np.int8)
+    text = "".join("ACGT"[c] for c in codes)
+    qs = []
+    for k in range(4000):
+        ln = int(rng.integers(12, 33))
+        p = int(rng.integers(0, n - ln))
+        q = text[p:p + ln]
+        if k % 3 == 1:
+            q = "".join("ACGT"[c] for c in rng.integers(0, 4, ln))
+        qs.append(q)
+    q = pack_queries(qs, 32)
+    card = FMIndex(codes, checkpoint=checkpoint, device=cuda)
+    cpu = FMIndex(codes, checkpoint=checkpoint, device="cpu")
+    lo, hi = card.search_batch(q)
+    torch.cuda.synchronize()
+    c_lo, c_hi = cpu.search_batch(q)
+    assert np.array_equal(lo, c_lo) and np.array_equal(hi, c_hi)
+    assert (hi > lo).sum() >= 2000

@@ -1,7 +1,8 @@
 """hgtpu_torch stands alone: a subprocess with jax and hgtpu blocked
 imports every module of the port, builds and simulates a tiny gene with
 the port's own db and sim, and types it on the host-engine path and on
-the production path; and no source file of the port, nor chip_smoke.py
+the production path, types a 3-gene family, searches an FM index and
+extracts reads against a genotype genome; and no source file of the port, nor chip_smoke.py
 or measure_gpu.py, imports jax or hgtpu."""
 import ast
 import os
@@ -53,6 +54,39 @@ prob = st.call_pairs(st.encode([r.seq for r in r1]),
                      st.encode([r.seq for r in r2]))[0]
 assert gene.allele_names[int(prob.argmax())] == truth
 dryrun_multichip(1, device="cpu")
+# family typing through the router, an FM search, genome extraction
+import tempfile
+from synth import make_family
+from hgtpu_torch.db import build_catalog_from_msa, build_genotype_genome
+from hgtpu_torch.ops.fm import FMIndex, pack_queries
+from hgtpu_torch.pipeline import GenomeExtractor, type_family
+from hgtpu_torch.utils.dna import encode_seq
+fam = make_family(genes=("A", "B", "C"), n_alleles=8, length=900, seed=5)
+cat = build_catalog_from_msa("hla", {
+    g: dict(names=s["names"], rows=s["rows"], ref_allele=s["ref_allele"])
+    for g, s in fam["specs"].items()}, min_var_freq=0.0)
+truths = {g: cat.genes[g].allele_names[3] for g in cat.genes}
+f1, f2 = [], []
+for g, a in truths.items():
+    r1, r2, _ = simulate_reads(cat.genes[g], [a], simulate_interval=10,
+                               seed=4)
+    f1 += [(g + r.name, r.seq) for r in r1]
+    f2 += [(g + r.name, r.seq) for r in r2]
+res = type_family(cat, f1, f2, device="cpu")
+assert {g: r.prob[0][0] for g, r in res.items()} == truths
+genome = fam["genome"]
+fm = FMIndex(encode_seq(genome), checkpoint=True, device="cpu")
+lo, hi = fm.search_batch(pack_queries([genome[500:530]], 30))
+assert hi[0] - lo[0] == 1 and fm.sa[lo[0]] == 500
+for g, (l, r) in fam["loci"].items():
+    cat.genes[g].chrom, cat.genes[g].chrom_left, cat.genes[g].chrom_right = \
+        "chrS", l, r
+with tempfile.TemporaryDirectory() as tmp:
+    spliced, offsets = build_genotype_genome({"chrS": genome}, {"hla": cat},
+                                             tmp + "/gg")
+routed = GenomeExtractor(spliced, offsets, {"hla": cat},
+                         device="cpu").extract(f1, f2)
+assert len(routed["hla"][0]) >= 0.9 * len(f1)
 assert sys.modules["jax"] is None and sys.modules["hgtpu"] is None
 assert type(gene).__module__ == "hgtpu_torch.db.catalog"
 print("TYPED", truth)
