@@ -21,7 +21,11 @@ hgtpu_torch.pipeline.type_reads and checks them phase by phase:
     panel router (one K1 product over every gene's PWM, a segment max),
     the NH==1 rule, then each gene on the host engine (K1 placement, the
     bit DP, K2 in the fold); ReadExtractor; linear typing and SAM in and
-    out; genome-scale extraction on the checkpointed FM index.
+    out; genome-scale extraction on the checkpointed FM index;
+  * the command line (hgtpu_torch.cli.main.main, `python -m
+    hgtpu_torch`, the toolkit's parse-results) on text databases the
+    port wrote: the family's sample, and the simulation self-test at
+    HLA-A scale on the production path.
 
 Phases:
 
@@ -98,6 +102,20 @@ Phases:
              routes them; FM search time, calls and device kernels;
              reads/s; the family's own pairs extracted and typed, truths
              on top
+  cli        the family's catalog as a text database (export_text) and
+             its pairs as gzipped FASTQ, typed by `main(["-1", .., "-2",
+             ..])` with no device given (the card by default): rc 0, the
+             report equal line for line (but the argv line) to the one
+             ReportWriter writes from the family phase's results, K1
+             (router, per gene), K2 and bit-DP launches inside the call;
+             the 3,600-allele gene as gene A of a text database,
+             `--debug basic,test_size:5,set_seed:101`: rc 0, the place
+             pass on K1, K2 in the rescue's fold, the bit DP, and the
+             five reports equal to an in-process simulation_sweep's;
+             import_text's time at 3,600 alleles; `python -m
+             hgtpu_torch` on the toy gene in a subprocess (rc 0), then
+             `python -m hgtpu_torch.cli.toolkit parse-results` over the
+             family run: every gene's truth pair in the CSV
   proof      launch counts of each path's runs (counts set to 0 just
              before the path, read just after): K1 > 0 on both paths, K2
              > 0 on the host path and on prod-scale whenever its rescue
@@ -123,6 +141,7 @@ shape checked.  "kernels" lists the kernels of the path; "off_path" the wide
 K2 variant, which no table of the path takes, and the warp DP kernel,
 which no budget of the path takes.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -550,6 +569,38 @@ def build_family(genes=FAMILY_GENES, n_alleles=200, length=3500,
     return fam, cat, truths, per_gene, reads_1, reads_2
 
 
+@contextlib.contextmanager
+def k1_spies(operands=None):
+    """Counts the K1 calls of the panel router and of the per-gene
+    placements, {"router": n, "gene": n} (a spy wraps each module's
+    uncounted callee, so the kernel's own launch counter stays the only
+    count); the router's first operands of each read width go into
+    `operands` {m: (pwm, reads)} when it is given."""
+    from hgtpu_torch.align import panel
+    from hgtpu_torch.ops import placement as tplace
+
+    calls = {"router": 0, "gene": 0}
+    real_router, real_gene = panel.correlate_scores, tplace.correlate_scores
+
+    def router_spy(pwm, reads):
+        calls["router"] += 1
+        if operands is not None:
+            operands.setdefault(reads.shape[1], (pwm, reads))
+        return real_router(pwm, reads)
+
+    def gene_spy(pwm, reads):
+        calls["gene"] += 1
+        return real_gene(pwm, reads)
+
+    panel.correlate_scores = router_spy
+    tplace.correlate_scores = gene_spy
+    try:
+        yield calls
+    finally:
+        panel.correlate_scores = real_router
+        tplace.correlate_scores = real_gene
+
+
 def family_phase(cat, truths, reads_1, reads_2, dev, counts, reset,
                  sam_prefix):
     """type_family on `dev` (FamilyAligner routes through the panel
@@ -560,11 +611,10 @@ def family_phase(cat, truths, reads_1, reads_2, dev, counts, reset,
     router's K1 operands), then the run whose launches are counted: the
     counts are set to 0 just before it and read just after.  Returns
     (launches, router operands {m: (pwm, reads)}, family aligner, the
-    K1 calls of that run: {"router": n, "gene": n})."""
+    K1 calls of that run: {"router": n, "gene": n}, its results, its
+    wall)."""
     import torch
     from hgtpu_torch.align import FamilyAligner
-    from hgtpu_torch.align import panel
-    from hgtpu_torch.ops import placement as tplace
     from hgtpu_torch.pipeline import ReadExtractor, type_family
     from hgtpu_torch.utils.trace import TRACE
 
@@ -574,21 +624,7 @@ def family_phase(cat, truths, reads_1, reads_2, dev, counts, reset,
         raise AssertionError("family: the router is off for %d genes"
                              % len(cat.genes))
     operands = {}
-    calls = {"router": 0, "gene": 0}
-    real_router, real_gene = panel.correlate_scores, tplace.correlate_scores
-
-    def router_spy(pwm, reads):
-        calls["router"] += 1
-        operands.setdefault(reads.shape[1], (pwm, reads))
-        return real_router(pwm, reads)
-
-    def gene_spy(pwm, reads):
-        calls["gene"] += 1
-        return real_gene(pwm, reads)
-
-    panel.correlate_scores = router_spy
-    tplace.correlate_scores = gene_spy
-    try:
+    with k1_spies(operands) as calls:
         t0 = time.perf_counter()
         type_family(cat, reads_1, reads_2, family_aligner=fa,
                     sam_out=sam_prefix)
@@ -607,9 +643,6 @@ def family_phase(cat, truths, reads_1, reads_2, dev, counts, reset,
         launches = counts()
         proof = dict(calls)
         stages = TRACE.summary()
-    finally:
-        panel.correlate_scores = real_router
-        tplace.correlate_scores = real_gene
     t0 = time.perf_counter()
     ref = type_family(cat, reads_1, reads_2, device="cpu")
     cpu_s = time.perf_counter() - t0
@@ -656,7 +689,7 @@ def family_phase(cat, truths, reads_1, reads_2, dev, counts, reset,
         "%d), equal to the CPU run; %.2f s with its set-up"
         % (len(kept), len(reads_1), sum(n.startswith("bg") for n in kept),
            n_bg, ex_s))
-    return launches, operands, fa, proof
+    return launches, operands, fa, proof, res, wall
 
 
 def panel_phase(router, cpu_router, operands, long_seqs, timer):
@@ -870,6 +903,242 @@ def extract_phase(cat, fam, truths, reads_1, reads_2, dev, out_prefix,
         "background pairs routed; type_family on them: truths on top in "
         "every gene" % (len(reads_1), n_gene,
                         sum(n.startswith("bg") for n, _ in got[0]), n_bg))
+
+
+def report_lines(path):
+    """A report's lines without the one after `# COMMAND:` (the argv of
+    the process that wrote it)."""
+    with open(path) as f:
+        lines = f.read().split("\n")
+    i = lines.index("# COMMAND:")
+    return lines[:i + 1] + lines[i + 2:]
+
+
+def write_reports(results, simulation):
+    """Reports as hgtpu_torch.cli.main writes them, from results already
+    in hand: [(path, [(true alleles, GeneTypingResult), ...])]."""
+    from hgtpu_torch.typer.report import ReportWriter
+
+    for path, rows in results:
+        w = ReportWriter(path)
+        w.header(dbversion="NONE", command=" ".join(sys.argv))
+        w.begin_aligner()
+        for true_alleles, res in rows:
+            w.gene_result(res, simulation=simulation,
+                          true_alleles=true_alleles)
+        w.close()
+
+
+def cli_phase(cat, truths, reads_1, reads_2, fam_res, fam_wall, big, toy,
+              dev, counts, reset, work, smi):
+    """The command line on the card, in process, with no device given
+    (so it takes the card):
+
+    - the family's sample: the catalog written with the port's
+      export_text, its pairs as gzipped FASTQ with write_fastq, then
+      `main(["--base", "hla", "--ix-dir", DB, "-1", .., "-2", ..])`; rc
+      0, and the report equal, line for line but the argv line, to the
+      one ReportWriter writes from the family phase's results; K1
+      (router, per gene), K2 and bit-DP launches counted inside the call;
+    - the simulation self-test at HLA-A scale: the 3,600-allele gene as
+      gene A of a text database, `--locus-list A --debug
+      basic,test_size:5,set_seed:101`; rc 0 (every truth ranked first),
+      the production path taken (K1 in the place pass, K2 in the
+      rescue's fold, the bit DP wherever the native verifier is built),
+      and the five reports equal to those of an in-process
+      simulation_sweep with the same arguments;
+    - `python -m hgtpu_torch` in a subprocess (a small simulation on the
+      toy gene, test_size:1, no HGTPU_TORCH_DEVICE), then
+      `python -m hgtpu_torch.cli.toolkit parse-results` over the family
+      run's output: its CSV names each gene's truth pair.
+
+    Prints `cli:` lines with the walls, rates, launches and import_text's
+    time at 3,600 alleles, beside the card's name and power limit."""
+    import shutil
+    import numpy as np
+    import torch
+    from hgtpu_torch.cli import main as cli
+    from hgtpu_torch.db import Catalog
+    from hgtpu_torch.db.catalog import export_text, import_text
+    from hgtpu_torch.native import have_native
+    from hgtpu_torch.pipeline import simulation_sweep
+    from hgtpu_torch.utils.io import read_fastx, write_fastq
+    from hgtpu_torch.utils.trace import TRACE
+
+    if os.environ.get(cli.DEVICE_ENV):
+        raise AssertionError("cli: %s is set; the phase needs the default "
+                             "device" % cli.DEVICE_ENV)
+    root = os.path.join(work, "cli")
+    shutil.rmtree(root, ignore_errors=True)
+
+    # ---- the family's sample, real reads ---- #
+    db = os.path.join(root, "db")
+    t0 = time.perf_counter()
+    export_text(cat, os.path.join(db, "hla"))
+    export_s = time.perf_counter() - t0
+    fq = [os.path.join(root, "sample.%d.fq.gz" % k) for k in (1, 2)]
+    t0 = time.perf_counter()
+    write_fastq(reads_1, fq[0])
+    write_fastq(reads_2, fq[1])
+    fastq_s = time.perf_counter() - t0
+    if read_fastx(fq[0]) != reads_1 or read_fastx(fq[1]) != reads_2:
+        raise AssertionError("cli: the FASTQ does not read back as written")
+    out = os.path.join(root, "family")
+    argv = ["--base", "hla", "--ix-dir", db, "-1", fq[0], "-2", fq[1],
+            "--out-dir", out]
+    with k1_spies() as calls:
+        reset()
+        TRACE.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts()
+        k1 = dict(calls)
+    stages = TRACE.summary()
+    if rc != 0:
+        raise AssertionError("cli: the family run exited %d" % rc)
+    want = os.path.join(root, "family_want.report")
+    write_reports([(want, [((), fam_res[g]) for g in cat.genes])],
+                  simulation=False)
+    got = os.path.join(out, "assembly_graph-hla.sample.report")
+    if report_lines(got) != report_lines(want):
+        raise AssertionError("cli: the family report differs from the one "
+                             "written from type_family's results")
+    if k1["router"] != 2 or k1["gene"] <= 0 \
+            or launches["placement_scores"] != k1["router"] + k1["gene"] \
+            or launches["and_reduce_slab"] <= 0 \
+            or launches["banded_dp_bits"] <= 0:
+        raise AssertionError("cli: family launches %s, K1 calls %s"
+                             % (launches, k1))
+    n_reads = len(reads_1) + len(reads_2)
+    log("cli: family run `main(-1 -2)`: %d genes, %d pairs; rc 0, report "
+        "equals the family phase's line for line; wall %.3f s (cold: "
+        "import_text, FASTQ parse, aligners; the family phase's warm run "
+        "%.3f s), %.1f reads/s; launches K1 %d (router %d, per gene %d), "
+        "K2 %d, bit DP %d; export_text %.2f s, write_fastq %.2f s "
+        "(gzip); %s"
+        % (len(cat.genes), len(reads_1), wall, fam_wall, n_reads / wall,
+           launches["placement_scores"], k1["router"], k1["gene"],
+           launches["and_reduce_slab"], launches["banded_dp_bits"],
+           export_s, fastq_s, smi))
+    top = sorted(((k, v["s"]) for k, v in stages.items() if "." in k),
+                 key=lambda kv: -kv[1])[:8]
+    log("cli: family run TRACE (s, nested): %s"
+        % ", ".join("%s %.4f" % kv for kv in top))
+
+    # ---- the simulation self-test at HLA-A scale ---- #
+    sdb = os.path.join(root, "scale_db")
+    t0 = time.perf_counter()
+    export_text(Catalog(family="hla", genes={"A": big}),
+                os.path.join(sdb, "hla"))
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = import_text("hla", os.path.join(sdb, "hla")).genes["A"]
+    import_s = time.perf_counter() - t0
+    if back.allele_names != big.allele_names \
+            or back.var_ids != big.var_ids \
+            or not np.array_equal(back.links, big.links) \
+            or back.backbone != big.backbone:
+        raise AssertionError("cli: the scale gene does not import as it "
+                             "was exported")
+    del back
+    sout = os.path.join(root, "scale")
+    debug = "basic,test_size:5,set_seed:101"
+    argv = ["--base", "hla", "--ix-dir", sdb, "--locus-list", "A",
+            "--debug", debug, "--out-dir", sout]
+    reset()
+    TRACE.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    stages = TRACE.summary()
+    if rc != 0:
+        raise AssertionError("cli: the scale simulation exited %d (a truth "
+                             "not ranked first)" % rc)
+    if "device.place" not in stages or launches["placement_scores"] <= 0:
+        raise AssertionError("cli: no place pass on K1 in the scale "
+                             "simulation: %s" % launches)
+    if "rescue.fold" not in stages or launches["and_reduce_slab"] <= 0:
+        raise AssertionError("cli: K2 never launched in the rescue's fold: "
+                             "%s" % launches)
+    if have_native() and launches["banded_dp_bits"] <= 0:
+        raise AssertionError("cli: the native verifier is built but the "
+                             "bit DP never launched: %s" % launches)
+    args = cli.build_parser().parse_args(argv)
+    opts = cli.typing_options_from_args(args, cli.A.parse_debug(debug))
+    n, results = simulation_sweep(
+        big, test_size=5, seed=101, paired=True, allele_count=1,
+        simulate_interval=args.simulate_interval, read_len=args.read_len,
+        fragment_len=args.fragment_len, opts=opts, device=dev)
+    want_dir = os.path.join(root, "scale_want")
+    os.makedirs(want_dir)
+    write_reports([(os.path.join(want_dir, "t%d.report" % t), [row])
+                   for t, row in enumerate(results)], simulation=True)
+    names = sorted(os.listdir(sout))
+    want_names = ["assembly_graph-hla.test-%d.report" % (t + 1)
+                  for t in range(5)]
+    if [f for f in names if f.endswith(".report")] != want_names or n != 5:
+        raise AssertionError("cli: scale reports %s, in-process sweep "
+                             "passed %d" % (names, n))
+    for t in range(5):
+        if report_lines(os.path.join(sout, want_names[t])) != \
+                report_lines(os.path.join(want_dir, "t%d.report" % t)):
+            raise AssertionError("cli: scale report %d differs from the "
+                                 "in-process sweep's" % (t + 1))
+    n_sim = sum(r.num_reads for _, r in results)
+    log("cli: scale simulation `main(--debug %s)`: A=%d, 5 tests, %d "
+        "reads typed; rc 0 (5/5 ranked first), 5 reports equal to an "
+        "in-process simulation_sweep's; wall %.3f s (cold), %.1f reads/s; "
+        "launches K1 %d, K2 %d, bit DP %d, warp DP %d; import_text at "
+        "%d alleles %.3f s (export_text %.2f s); %s"
+        % (debug, big.n_alleles, n_sim, wall, n_sim / wall,
+           launches["placement_scores"], launches["and_reduce_slab"],
+           launches["banded_dp_bits"], launches["banded_dp_warp"],
+           big.n_alleles, import_s, export_s, smi))
+    top = sorted(((k, v["s"]) for k, v in stages.items() if "." in k),
+                 key=lambda kv: -kv[1])[:8]
+    log("cli: scale simulation TRACE (s, nested): %s"
+        % ", ".join("%s %.4f" % kv for kv in top))
+
+    # ---- the module entries, as a user runs them ---- #
+    tdb = os.path.join(root, "toy_db")
+    export_text(Catalog(family="hla", genes={"A": toy}),
+                os.path.join(tdb, "hla"))
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    run = dict(cwd=ROOT, env=env, capture_output=True, text=True,
+               timeout=600)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "hgtpu_torch", "--base", "hla", "--ix-dir",
+         tdb, "--locus-list", "A", "--debug", "basic,test_size:1,set_seed:7",
+         "--out-dir", os.path.join(root, "module")], **run)
+    module_s = time.perf_counter() - t0
+    if proc.returncode != 0 or "Passed so far: 1/1" not in proc.stderr:
+        raise AssertionError("cli: python -m hgtpu_torch exited %d:\n%s"
+                             % (proc.returncode, proc.stderr[-3000:]))
+    csv = os.path.join(root, "calls.csv")
+    proc = subprocess.run(
+        [sys.executable, "-m", "hgtpu_torch.cli.toolkit", "parse-results",
+         "--in-dir", out, "--csv", csv], **run)
+    if proc.returncode != 0:
+        raise AssertionError("cli: parse-results exited %d:\n%s"
+                             % (proc.returncode, proc.stderr[-3000:]))
+    with open(csv) as f:
+        rows = [line.rstrip("\n").split(",") for line in f][1:]
+    got_calls = {r[1]: sorted(r[2:4]) for r in rows
+                 if r[0] == "assembly_graph-hla.sample"}
+    if got_calls != {g: sorted(t) for g, t in truths.items()}:
+        raise AssertionError("cli: parse-results calls %s, truths %s"
+                             % (got_calls, truths))
+    log("cli: `python -m hgtpu_torch` (toy, test_size:1, on the card by "
+        "default) rc 0 in %.1f s of process; `python -m "
+        "hgtpu_torch.cli.toolkit parse-results` names every gene's truth "
+        "pair (%d genes); %s" % (module_s, len(got_calls), smi))
 
 
 def linear_sam_phase(cat, truths, per_gene, dev, sam_path, n_pairs=1000):
@@ -1447,7 +1716,7 @@ def main():
                                  len(f1), 2000, time.perf_counter() - t0))
     work = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
-    fam_launches, operands, fa, fam_proof = family_phase(
+    fam_launches, operands, fa, fam_proof, fam_res, fam_wall = family_phase(
         cat, fam_truths, f1, f2, dev, counts, reset,
         os.path.join(work, "family"))
     rng = np.random.default_rng(23)
@@ -1463,7 +1732,13 @@ def main():
     extract_phase(cat, fam, fam_truths, f1, f2, dev,
                   os.path.join(work, "gg"))
 
-    # ---- 10. proof of path ---- #
+    # ---- 10. the command line on the card: the family's sample, the
+    # simulation self-test at HLA-A scale, the module entries ---- #
+    cli_phase(cat, fam_truths, f1, f2, fam_res, fam_wall, big, toy, dev,
+              counts, reset, work, smi)
+    del fam_res
+
+    # ---- 11. proof of path ---- #
     for rec in kernels + off_path:
         rec["launches"] = (fam_launches if rec.get("path") == "family"
                            else prod_launches)[rec["name"]]

@@ -6,7 +6,9 @@ it.  It imports torch and numpy, and nothing of hgtpu or jax: the host
 modules it shares with hgtpu are its own copies.
 
 Every device function takes an explicit ``device``; ``default_device()``
-is ``cuda`` when a card is present and ``cpu`` otherwise.  The algebra is
+is ``cuda`` when a card is present and raises otherwise: the CPU is
+taken only when asked for (``device="cpu"``, or ``HGTPU_TORCH_DEVICE=cpu``
+on the command line), never as a silent fallback.  The algebra is
 integer-valued, so float32 products must stay exact: TF32 is off for
 matmuls and convolutions alike.
 """
@@ -19,7 +21,13 @@ torch.backends.cudnn.allow_tf32 = False
 
 
 def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """``cuda`` when a card is present; otherwise a RuntimeError that
+    says how to ask for the CPU."""
+    if torch.cuda.is_available():
+        return torch.device("cuda")
+    raise RuntimeError(
+        "no CUDA device is available; to run on the CPU pass "
+        "device=\"cpu\", or on the command line set HGTPU_TORCH_DEVICE=cpu")
 
 
 def resolve_device(device=None) -> torch.device:

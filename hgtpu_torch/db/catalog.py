@@ -1,10 +1,12 @@
-# Copy of hgtpu/db/catalog.py, without the text exporters (no caller
-# here), plus gene_from_fields.
+# Copy of hgtpu/db/catalog.py, plus gene_from_fields.
 """Graph-reference catalog: the in-memory / on-disk database for one family.
 
 Everything lives as packed numpy arrays (host) that upload directly as
 device tensors; ``save_npz`` / ``load_npz`` keep a family in one file,
 in the same layout as hgtpu's, so either package reads the other's.
+``export_text`` / ``import_text`` read and write the reference's text
+database (``<base>_backbone.fa``, ``.snp``, ``.link``, ``.haplotype``,
+``.locus``, ``.allele``, ...), which the command line types from.
 
 Variant model (ref: typing_common.py:339-368 read_variants):
   type in {single, deletion, insertion}; pos is a 0-based backbone
@@ -23,6 +25,9 @@ from ..utils.dna import encode_seq
 VT_SINGLE = 0
 VT_DELETION = 1
 VT_INSERTION = 2
+
+_VT_NAME = {VT_SINGLE: "single", VT_DELETION: "deletion", VT_INSERTION: "insertion"}
+_VT_CODE = {v: k for k, v in _VT_NAME.items()}
 
 
 @dataclasses.dataclass
@@ -184,6 +189,171 @@ class Catalog:
 
     def gene(self, g: str) -> GeneRef:
         return self.genes[g]
+
+
+# ---------------------------------------------------------------------- #
+# Text export / import in the exact reference formats, for parity checks
+# (formats documented at typing_common.py:277-403 and written at
+#  typing_process.py:1001-1255).
+# ---------------------------------------------------------------------- #
+def export_text(cat: Catalog, out_prefix: str) -> None:
+    import os
+
+    os.makedirs(os.path.dirname(out_prefix) or ".", exist_ok=True)
+    bb = open(out_prefix + "_backbone.fa", "w")
+    seqf = open(out_prefix + "_sequences.fa", "w")
+    snp = open(out_prefix + ".snp", "w")
+    isnp = open(out_prefix + ".index.snp", "w")
+    freq = open(out_prefix + ".snp.freq", "w")
+    link = open(out_prefix + ".link", "w")
+    hap = open(out_prefix + ".haplotype", "w")
+    locus = open(out_prefix + ".locus", "w")
+    allelef = open(out_prefix + ".allele", "w")
+    partialf = open(out_prefix + ".partial", "w")
+    nh = 0
+    for g in cat.genes.values():
+        print(">%s" % g.backbone_name, file=bb)
+        for s in range(0, len(g.backbone), 60):
+            print(g.backbone[s:s + 60], file=bb)
+        exon_str = ",".join(
+            "%d-%d%s" % (l, r, "p" if (l, r) in [tuple(e) for e in g.primary_exons] else "")
+            for l, r in g.exons
+        )
+        print(
+            "%s\t%s\t%d\t%d\t%d\t%s\t%s"
+            % (g.backbone_name, g.chrom, g.chrom_left, g.chrom_right,
+               len(g.backbone), exon_str, g.strand),
+            file=locus,
+        )
+        for i, vid in enumerate(g.var_ids):
+            line = "%s\t%s\t%s\t%d\t%s" % (
+                vid, _VT_NAME[int(g.var_type[i])], g.backbone_name,
+                int(g.var_pos[i]), g.var_data[i],
+            )
+            print(line, file=snp)
+            if g.var_freq[i] >= g.min_var_freq:
+                print(line, file=isnp)
+            print("%s\t%.2f" % (vid, g.var_freq[i]), file=freq)
+            members = [g.allele_names[a] for a in np.flatnonzero(g.links[i])]
+            print("%s\t%s" % (vid, " ".join(sorted(members))), file=link)
+        for left, right, vidxs in g.haplotypes:
+            print(
+                "ht%d\t%s\t%d\t%d\t%s"
+                % (nh, g.backbone_name, left, right,
+                   ",".join(g.var_ids[v] for v in vidxs)),
+                file=hap,
+            )
+            nh += 1
+        for name in g.allele_names:
+            print(">%s" % name, file=seqf)
+            s = g.allele_seq(name)
+            for i in range(0, len(s), 60):
+                print(s[i:i + 60], file=seqf)
+            print(name, file=allelef)
+            if name in g.partial:
+                print(name, file=partialf)
+    for f in (bb, seqf, snp, isnp, freq, link, hap, locus, allelef, partialf):
+        f.close()
+
+
+def import_text(family: str, prefix: str) -> Catalog:
+    """Load a reference-format database directory into a Catalog."""
+    import os
+    from collections import defaultdict
+
+    # backbone sequences
+    backbones = _read_fasta(prefix + "_backbone.fa")
+    # locus
+    loci = {}
+    for line in open(prefix + ".locus"):
+        name, chrom, left, right, _blen, exon_str, strand = line.split()
+        gene = name.split("*")[0]
+        exons, primary = [], []
+        for ex in exon_str.split(","):
+            p = ex.endswith("p")
+            if p:
+                ex = ex[:-1]
+            l, r = map(int, ex.split("-"))
+            exons.append((l, r))
+            if p:
+                primary.append((l, r))
+        loci[gene] = (name, chrom, int(left), int(right), exons, primary, strand)
+    # variants per gene
+    pergene = defaultdict(lambda: {"ids": [], "type": [], "pos": [], "data": []})
+    for line in open(prefix + ".snp"):
+        vid, vt, name, pos, data = line.rstrip("\n").split("\t")
+        gene = name.split("*")[0]
+        d = pergene[gene]
+        d["ids"].append(vid)
+        d["type"].append(_VT_CODE[vt])
+        d["pos"].append(int(pos))
+        d["data"].append(data)
+    freqs = {}
+    if os.path.exists(prefix + ".snp.freq"):
+        for line in open(prefix + ".snp.freq"):
+            vid, f = line.split()
+            freqs[vid] = float(f)
+    links_raw = {}
+    for line in open(prefix + ".link"):
+        parts = line.split()
+        links_raw[parts[0]] = parts[1:]
+    alleles_by_gene = defaultdict(list)
+    for line in open(prefix + ".allele"):
+        name = line.strip()
+        alleles_by_gene[name.split("*")[0]].append(name)
+    partial = set()
+    if os.path.exists(prefix + ".partial"):
+        partial = {l.strip() for l in open(prefix + ".partial")}
+    haps_by_gene = defaultdict(list)
+    if os.path.exists(prefix + ".haplotype"):
+        for line in open(prefix + ".haplotype"):
+            _hid, name, left, right, vids = line.split()
+            haps_by_gene[name.split("*")[0]].append(
+                (int(left), int(right), vids.split(","))
+            )
+
+    genes = {}
+    for gene, (bname, chrom, left, right, exons, primary, strand) in loci.items():
+        d = pergene[gene]
+        names = alleles_by_gene[gene]
+        aidx = {a: i for i, a in enumerate(names)}
+        V = len(d["ids"])
+        links = np.zeros((V, len(names)), dtype=bool)
+        for i, vid in enumerate(d["ids"]):
+            for a in links_raw.get(vid, []):
+                if a in aidx:
+                    links[i, aidx[a]] = True
+        vtype = np.array(d["type"], dtype=np.int8)
+        vlen = np.array(
+            [int(dd) if t == VT_DELETION else len(dd)
+             for dd, t in zip(d["data"], d["type"])],
+            dtype=np.int32,
+        )
+        id2i = {v: i for i, v in enumerate(d["ids"])}
+        genes[gene] = GeneRef(
+            gene=gene,
+            backbone_name=bname,
+            backbone=backbones[bname],
+            allele_names=names,
+            var_ids=d["ids"],
+            var_type=vtype,
+            var_pos=np.array(d["pos"], dtype=np.int32),
+            var_len=vlen,
+            var_data=d["data"],
+            var_freq=np.array([freqs.get(v, 100.0) for v in d["ids"]],
+                              dtype=np.float32),
+            links=links,
+            exons=exons,
+            primary_exons=primary,
+            haplotypes=[(l, r, [id2i[v] for v in vs])
+                        for l, r, vs in haps_by_gene[gene]],
+            partial=partial & set(names),
+            chrom=chrom,
+            chrom_left=left,
+            chrom_right=right,
+            strand=strand,
+        )
+    return Catalog(family=family, genes=genes)
 
 
 def save_npz(cat: Catalog, path: str) -> None:

@@ -1,4 +1,4 @@
-# Copy of hgtpu/sim/simulator.py, without write_fasta (no caller here).
+# Copy of hgtpu/sim/simulator.py.
 """Read simulator with truth-encoded read names.
 
 Port of the reference's simulate_reads / simulate_reads_impl / get_info
@@ -235,3 +235,10 @@ def parse_truth_name(name: str):
             vids.append(vid)
     return dict(index=int(idx), mate=mate, pos=pos, cigar=cigar,
                 vars=vids, has_unknown=has_unknown)
+
+
+def write_fasta(reads, path):
+    with open(path, "w") as f:
+        for r in reads:
+            print(">%s" % r.name, file=f)
+            print(r.seq, file=f)

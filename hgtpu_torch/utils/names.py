@@ -1,9 +1,11 @@
-# Copy of hgtpu/utils/names.py, without sort_genall (no caller here).
+# Copy of hgtpu/utils/names.py.
 """Allele/gene name sort keys.
 
-Ports of key_sortGene / key_sortAllele (typing_common.py:112-152): genes
-sort by (letters, number); alleles by gene key then the numeric parts of
-up to four colon-separated fields.
+Ports of key_sortGene / key_sortAllele / sort_genall
+(typing_common.py:112-152): genes sort by (letters, number); alleles by
+gene key then the numeric parts of up to four colon-separated fields.
+Used for deterministic reference-style ordering of sequence files and
+report tie-breaks.
 """
 from __future__ import annotations
 
@@ -26,3 +28,11 @@ def key_sort_allele(x: str):
     while len(fields) < 4:
         fields.append(-1)
     return tuple([gen, val] + fields[:4])
+
+
+def sort_genall(names, alleles=False):
+    try:
+        return sorted(names, key=key_sort_allele if alleles
+                      else key_sort_gene)
+    except (ValueError, IndexError):
+        return sorted(names)

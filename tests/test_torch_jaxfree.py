@@ -1,9 +1,10 @@
 """hgtpu_torch stands alone: a subprocess with jax and hgtpu blocked
 imports every module of the port, builds and simulates a tiny gene with
 the port's own db and sim, and types it on the host-engine path and on
-the production path, types a 3-gene family, searches an FM index and
-extracts reads against a genotype genome; and no source file of the port, nor chip_smoke.py
-or measure_gpu.py, imports jax or hgtpu."""
+the production path, types a 3-gene family, searches an FM index,
+extracts reads against a genotype genome, and runs the command line's
+simulation on a text database the port wrote; and no source file of the
+port, nor chip_smoke.py or measure_gpu.py, imports jax or hgtpu."""
 import ast
 import os
 import subprocess
@@ -12,7 +13,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _SCRIPT = r"""
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
 sys.modules["jax"] = None          # any import of jax now raises
 sys.modules["hgtpu"] = None        # and any import of the JAX package
 import torch
@@ -87,6 +88,18 @@ with tempfile.TemporaryDirectory() as tmp:
 routed = GenomeExtractor(spliced, offsets, {"hla": cat},
                          device="cpu").extract(f1, f2)
 assert len(routed["hla"][0]) >= 0.9 * len(f1)
+# the command line: a simulation on a text database the port wrote
+from hgtpu_torch.cli.main import main
+from hgtpu_torch.db import Catalog
+from hgtpu_torch.db.catalog import export_text
+with tempfile.TemporaryDirectory() as tmp:
+    export_text(Catalog(family="hla", genes={"A": gene}), tmp + "/hla")
+    rc = main(["--base", "hla", "--ix-dir", tmp, "--locus-list", "A",
+               "--debug", "basic,test_size:1,set_seed:3",
+               "--simulate-interval", "8", "--out-dir", tmp + "/out"],
+              device="cpu")
+    assert rc == 0
+    assert os.listdir(tmp + "/out") == ["assembly_graph-hla.test-1.report"]
 assert sys.modules["jax"] is None and sys.modules["hgtpu"] is None
 assert type(gene).__module__ == "hgtpu_torch.db.catalog"
 print("TYPED", truth)
