@@ -25,7 +25,11 @@ hgtpu_torch.pipeline.type_reads and checks them phase by phase:
   * the command line (hgtpu_torch.cli.main.main, `python -m
     hgtpu_torch`, the toolkit's parse-results) on text databases the
     port wrote: the family's sample, and the simulation self-test at
-    HLA-A scale on the production path.
+    HLA-A scale on the production path;
+  * guided assembly and phasing (assembly=True, `--assembly`): typing on
+    the host-engine path (K1, the bit DP, K2), then the assembly on the
+    host; and the toolkit's extract-codis-data, convert-codis,
+    extract-rbg and compare.
 
 Phases:
 
@@ -116,6 +120,20 @@ Phases:
              hgtpu_torch` on the toy gene in a subprocess (rc 0), then
              `python -m hgtpu_torch.cli.toolkit parse-results` over the
              family run: every gene's truth pair in the CSV
+  assembly   the 3,600-allele panel's truth allele_names[123] at
+             interval 4 (tests/test_hla_scale.py's test_assembly_at_scale)
+             typed with assembly=True on the card, counts set to 0 just
+             before and read just after: K1, K2 and the bit DP launched,
+             the truth first and called [truth, truth] from 1-2 contigs,
+             call (score within 1e-9) and contigs equal to the CPU run;
+             wall and TRACE's type.assembly; a profiled run for the
+             device's busy share; the toy's het pair (alleles 3 and 24,
+             interval 2) called; `main(--debug basic,test_size:2
+             --assembly)` on the toy's text database on the card and on
+             the CPU: reports equal but the argv line, every call named,
+             .fasta and .pdf byte for byte; the toolkit's
+             extract-codis-data (--html-dir), convert-codis, extract-rbg
+             and compare rc 0 on inputs written here
   proof      launch counts of each path's runs (counts set to 0 just
              before the path, read just after): K1 > 0 on both paths, K2
              > 0 on the host path and on prod-scale whenever its rescue
@@ -136,7 +154,8 @@ are device times of one call (CUDA-graph replay: the host's cost of a
 wrapped call, tens of microseconds, would swamp a small kernel),
 bound_ms / bound_by the least time the card could take for the same
 work, launches the main path's count (the family path's for the K1
-records at the router's shape, "path": "family"), max_abs_err over every
+records at the router's shape, "path": "family"), launches_assembly the
+assembly phase's scale run's, max_abs_err over every
 shape checked.  "kernels" lists the kernels of the path; "off_path" the wide
 K2 variant, which no table of the path takes, and the warp DP kernel,
 which no budget of the path takes.
@@ -1141,6 +1160,284 @@ def cli_phase(cat, truths, reads_1, reads_2, fam_res, fam_wall, big, toy,
         "pair (%d genes); %s" % (module_s, len(got_calls), smi))
 
 
+STR_PAGE = """<html><body><table>
+<tr><th>Allele</th><th>Repeat Structure</th></tr>
+<tr><td>9</td><td>[AGAA]<sub>9</sub></td></tr>
+<tr><td>13</td><td>[AGAA]<sub>13</sub></td></tr>
+<tr><td>14.2</td><td>[AGAA]<sub>13</sub> GA [AGAA]<sub>1</sub></td></tr>
+<tr><td>16</td><td>[AGAA]<sub>16</sub></td></tr>
+</table></body></html>
+"""
+
+
+def genbank_record(acc, gene, seq, exons):
+    """A GenBank flat-file record as extract-rbg reads it: a gene
+    feature with /gene, an mRNA join, numbered exons, ORIGIN."""
+    joins = ["%d..%d" % (left, right) for left, right in exons]
+    rows = ["LOCUS       %s             %d bp    DNA" % (acc, len(seq)),
+            "FEATURES             Location/Qualifiers",
+            "     source          1..%d" % len(seq),
+            "     gene            %d..%d" % (11, len(seq) - 10),
+            '                     /gene="%s"' % gene,
+            "     mRNA            join(%s," % joins[0],
+            "                     %s)" % ",".join(joins[1:]),
+            '                     /gene="%s"' % gene]
+    for i, (left, right) in enumerate(exons):
+        rows += ["     exon            %d..%d" % (left, right),
+                 '                     /number="%d"' % (i + 1)]
+    rows.append("ORIGIN")
+    for s in range(0, len(seq), 60):
+        chunk = seq[s:s + 60].lower()
+        rows.append("%9d %s" % (s + 1, " ".join(
+            chunk[k:k + 10] for k in range(0, len(chunk), 10))))
+    return "\n".join(rows) + "\n//"
+
+
+def assembly_phase(big, toy, dev, counts, reset, work, smi):
+    """Guided assembly and phasing (--assembly) on the card.  Typing with
+    assembly=True takes the host-engine path (K1 placement, the bit DP
+    in device verify, K2 in the fold); the assembly itself is host work.
+
+    - the homozygous call at scale (tests/test_hla_scale.py's
+      test_assembly_at_scale): truth allele_names[123], interval 4, seed
+      1; counts set to 0 just before the run and read just after: K1,
+      K2 and the bit DP launched; the truth ranked first and called
+      [truth, truth] from 1-2 contigs; call (score within 1e-9) and
+      contigs (names, sequences) equal to the port's CPU run; wall and
+      TRACE's type.assembly; then one more run under torch.profiler for
+      the device's busy share of the wall;
+    - the heterozygous call on the toy gene (tests/test_assembly.py's
+      alleles 3 and 24, interval 2, distinct read ids): the called pair
+      is the truth pair;
+    - the command line: `--assembly` simulation on the toy gene's text
+      database (test_size:2) on the card and on the CPU: reports equal
+      line for line but the argv line, every assembly call named (no
+      NONE), the .fasta and .pdf files equal byte for byte, each PDF
+      from %PDF to %%EOF;
+    - the toolkit's extract-codis-data (--html-dir), convert-codis,
+      extract-rbg and compare, once each on inputs written here: rc 0,
+      and the databases they write import with their alleles.
+
+    Returns the scale run's launches."""
+    import shutil
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from hgtpu_torch.cli import main as cli
+    from hgtpu_torch.cli import toolkit
+    from hgtpu_torch.db import Catalog
+    from hgtpu_torch.db.catalog import export_text, import_text
+    from hgtpu_torch.pipeline import type_reads
+    from hgtpu_torch.sim import simulate_reads
+    from hgtpu_torch.typer import TypingOptions
+    from hgtpu_torch.utils.trace import TRACE
+
+    root = os.path.join(work, "assembly")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    opts = TypingOptions(simulation=True, assembly=True)
+
+    # ---- the homozygous call at scale ---- #
+    truth = big.allele_names[123]
+    r1, r2, _ = simulate_reads(big, [truth], simulate_interval=4, seed=1)
+    reads = ([(r.name, r.seq) for r in r1], [(r.name, r.seq) for r in r2])
+    n_reads = len(r1) + len(r2)
+    reset()
+    TRACE.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = type_reads(big, *reads, opts, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    stages = TRACE.summary()
+    check_probs(res, "assembly scale")
+    if res.prob[0][0] != truth:
+        raise AssertionError("assembly scale: top call %s, truth %s"
+                             % (res.prob[0][0], truth))
+    if res.assembly_call is None or res.assembly_call[0] != [truth, truth]:
+        raise AssertionError("assembly scale: call %s, want [%s, %s]"
+                             % (res.assembly_call, truth, truth))
+    if not res.contigs or len(res.contigs) > 2:
+        raise AssertionError("assembly scale: %d contigs"
+                             % len(res.contigs or {}))
+    for name in ("placement_scores", "and_reduce_slab", "banded_dp_bits"):
+        if launches[name] <= 0:
+            raise AssertionError("assembly scale: %s never launched: %s"
+                                 % (name, launches))
+    t0 = time.perf_counter()
+    ref = type_reads(big, *reads, opts, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    same_result(res, ref, "assembly scale")
+    if ref.assembly_call is None \
+            or res.assembly_call[0] != ref.assembly_call[0] \
+            or abs(res.assembly_call[1] - ref.assembly_call[1]) >= 1e-9 \
+            or list(res.contigs.items()) != list(ref.contigs.items()):
+        raise AssertionError("assembly scale: call %s contigs %s, the CPU "
+                             "run's %s %s"
+                             % (res.assembly_call, list(res.contigs),
+                                ref.assembly_call, list(ref.contigs or {})))
+    asm_s = stages.get("type.assembly", {}).get("s", 0.0)
+    typing = sorted(((k, v["s"]) for k, v in stages.items()
+                     if "." in k and k != "type.assembly"),
+                    key=lambda kv: -kv[1])[:6]
+    log("assembly: scale A=%d, %d reads, truth %s called [%s, %s] (group "
+        "score %.5f) from %d contig(s) %s; equal to the CPU run (call, "
+        "contig names and sequences; CPU run %.1f s); wall %.3f s, "
+        "type.assembly %.3f s (%.1f %%), typing stages %s; launches K1 "
+        "%d, K2 %d, bit DP %d, warp DP %d; %s"
+        % (big.n_alleles, n_reads, truth, truth, truth,
+           10 ** res.assembly_call[1], len(res.contigs), list(res.contigs),
+           cpu_s, wall, asm_s, 100 * asm_s / wall,
+           ", ".join("%s %.4f" % kv for kv in typing),
+           launches["placement_scores"], launches["and_reduce_slab"],
+           launches["banded_dp_bits"], launches["banded_dp_warp"], smi))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        again = type_reads(big, *reads, opts, device=dev)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    if again.assembly_call != res.assembly_call:
+        raise AssertionError("assembly scale: the profiled run called %s"
+                             % (again.assembly_call,))
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.device_time for e in kern) / 1e6
+    log("assembly: profiled scale run wall %.3f s (profiler on), device "
+        "busy %.4f s (%.2f %% of the wall) in %d kernels; %s"
+        % (prof_wall, busy, 100 * busy / prof_wall, len(kern), smi))
+    del prof, kern, again, ref
+
+    # ---- the heterozygous call on the toy gene ---- #
+    a1, a2 = toy.allele_names[3], toy.allele_names[24]
+    r1a, r2a, _ = simulate_reads(toy, [a1], simulate_interval=2)
+    r1b, r2b, _ = simulate_reads(toy, [a2], simulate_interval=2)
+    het_1 = [("%d|L_x" % i, r.seq) for i, r in enumerate(r1a + r1b)]
+    het_2 = [("%d|R_x" % i, r.seq) for i, r in enumerate(r2a + r2b)]
+    t0 = time.perf_counter()
+    het = type_reads(toy, het_1, het_2,
+                     TypingOptions(simulation=False, assembly=True),
+                     device=dev)
+    het_s = time.perf_counter() - t0
+    if {a for a, _ in het.prob[:2]} != {a1, a2} \
+            or het.assembly_call is None \
+            or set(het.assembly_call[0]) != {a1, a2}:
+        raise AssertionError("assembly toy: top 2 %s, call %s, want {%s, %s}"
+                             % (het.prob[:2], het.assembly_call, a1, a2))
+    log("assembly: toy A=%d het pair %s / %s called %s (group score %.5f) "
+        "from %d contigs; wall %.3f s"
+        % (toy.n_alleles, a1, a2, het.assembly_call[0],
+           10 ** het.assembly_call[1], len(het.contigs), het_s))
+
+    # ---- the command line with --assembly, card against CPU ---- #
+    db = os.path.join(root, "toy_db")
+    export_text(Catalog(family="hla", genes={"A": toy}),
+                os.path.join(db, "hla"))
+    argv = ["--base", "hla", "--ix-dir", db, "--locus-list", "A",
+            "--debug", "basic,test_size:2,set_seed:101", "--assembly"]
+    outs = {}
+    for side, device in (("card", None), ("cpu", "cpu")):
+        out = os.path.join(root, "cli_" + side)
+        t0 = time.perf_counter()
+        rc = cli.main(argv + ["--out-dir", out], device=device)
+        outs[side] = (out, rc, time.perf_counter() - t0)
+        if rc != 0:
+            raise AssertionError("assembly cli (%s): rc %d" % (side, rc))
+    card, cpu = outs["card"][0], outs["cpu"][0]
+    names = sorted(os.listdir(card))
+    if names != sorted(os.listdir(cpu)):
+        raise AssertionError("assembly cli: files %s, CPU %s"
+                             % (names, sorted(os.listdir(cpu))))
+    kinds = {}
+    for name in names:
+        kinds.setdefault(name.rsplit(".", 1)[-1], []).append(name)
+        a, b = os.path.join(card, name), os.path.join(cpu, name)
+        if name.endswith(".report"):
+            if report_lines(a) != report_lines(b):
+                raise AssertionError("assembly cli: %s differs from the CPU "
+                                     "run's" % name)
+            with open(a) as f:
+                calls = f.read().split("Assembly Coloring Allele "
+                                       "Collapse:")[-1]
+            if "NONE" in calls or "Group score" not in calls:
+                raise AssertionError("assembly cli: %s calls %r"
+                                     % (name, calls))
+        else:
+            with open(a, "rb") as f:
+                data = f.read()
+            with open(b, "rb") as f:
+                if f.read() != data:
+                    raise AssertionError("assembly cli: %s differs from the "
+                                         "CPU run's, byte for byte" % name)
+            if name.endswith(".pdf") and not (
+                    data.startswith(b"%PDF") and data.endswith(b"%%EOF\n")):
+                raise AssertionError("assembly cli: %s is not a whole PDF"
+                                     % name)
+    if [len(kinds.get(k, ())) for k in ("report", "fasta", "pdf")] \
+            != [2, 2, 2]:
+        raise AssertionError("assembly cli: files %s" % names)
+    log("assembly: `main(--debug basic,test_size:2 --assembly)` on the "
+        "toy database: rc 0 on the card (%.1f s) and on the CPU (%.1f s); "
+        "2 reports equal line for line, every call named, 2 .fasta and 2 "
+        ".pdf files equal byte for byte"
+        % (outs["card"][2], outs["cpu"][2]))
+
+    # ---- the toolkit's last four commands ---- #
+    rng = np.random.default_rng(31)
+    pages = os.path.join(root, "pages")
+    os.makedirs(pages)
+    with open(os.path.join(pages, "str_D18S51.htm"), "w") as f:
+        f.write(STR_PAGE)
+    base = os.path.join(root, "codis")
+    flank = ["".join(rng.choice(list("ACGT"), 300)) for _ in range(2)]
+    seq = "".join(rng.choice(list("ACGT"), 1200))
+    variants = [seq]
+    for k in (1, 2):
+        s = list(seq)
+        for p in rng.choice(np.arange(30, len(seq) - 30), 3 + k,
+                            replace=False):
+            s[p] = "ACGT"[("ACGT".index(s[p]) + k) % 4]
+        variants.append("".join(s))
+    gb = os.path.join(root, "gypb.gb")
+    with open(gb, "w") as f:
+        f.write("\n".join(genbank_record("RB%03d" % k, "GYPB", s,
+                                         [(41, 400), (501, 1100)])
+                          for k, s in enumerate(variants)) + "\n")
+    calls_tsv, truth_tsv = (os.path.join(root, n)
+                            for n in ("calls.tsv", "truth.tsv"))
+    with open(calls_tsv, "w") as f:
+        f.write("s1\tA*01:01:01\t0.6\ns1\tA*02:05\t0.4\n"
+                "s2\tA*03:01\t0.9\ns2\tA*11:01\t0.05\n")
+    with open(truth_tsv, "w") as f:
+        f.write("s1\tA*01:01\ns2\tA*03:01\ns2\tA*11:01\n")
+    tk_db = os.path.join(root, "tk_db")
+    os.makedirs(tk_db)
+    runs = [["extract-codis-data", "--html-dir", pages, "--locus-list",
+             "D18S51", "--base", base],
+            ["convert-codis", "--base", "codis", "--ix-dir", tk_db, "--dat",
+             base + ".dat", "--flank5", flank[0], "--flank3", flank[1]],
+            ["extract-rbg", "--base", "rbg", "--ix-dir", tk_db,
+             "--genbank", gb],
+            ["compare", calls_tsv, truth_tsv, "--genes", "A"]]
+    for argv in runs:
+        rc = toolkit.main(argv)
+        if rc != 0:
+            raise AssertionError("toolkit %s: rc %d" % (argv[0], rc))
+    codis = import_text("codis", os.path.join(tk_db, "codis"))
+    rbg = import_text("rbg", os.path.join(tk_db, "rbg"))
+    if codis.genes["D18S51"].n_alleles != 4 \
+            or rbg.genes["GYPB"].n_alleles != 3:
+        raise AssertionError("toolkit: codis %s, rbg %s alleles"
+                             % (codis.genes["D18S51"].n_alleles,
+                                rbg.genes["GYPB"].n_alleles))
+    log("assembly: toolkit extract-codis-data (--html-dir), convert-codis, "
+        "extract-rbg and compare rc 0 (python %s, jax imported: %s); "
+        "D18S51 4 alleles, GYPB 3 alleles import"
+        % (sys.version.split()[0], sys.modules.get("jax") is not None))
+    return launches
+
+
 def linear_sam_phase(cat, truths, per_gene, dev, sam_path, n_pairs=1000):
     """type_reads_linear on gene A (n_pairs of its truth pairs) and
     type_from_sam of gene A's family SAM, on `dev`, each equal to the
@@ -1738,10 +2035,15 @@ def main():
               counts, reset, work, smi)
     del fam_res
 
-    # ---- 11. proof of path ---- #
+    # ---- 11. --assembly: the scale call with its launches counted, the
+    # toy het call, the command line, the toolkit's last four commands ---- #
+    asm_launches = assembly_phase(big, toy, dev, counts, reset, work, smi)
+
+    # ---- 12. proof of path ---- #
     for rec in kernels + off_path:
         rec["launches"] = (fam_launches if rec.get("path") == "family"
                            else prod_launches)[rec["name"]]
+        rec["launches_assembly"] = asm_launches[rec["name"]]
     for name in ("placement_scores", "and_reduce_slab", "banded_dp_bits"):
         if host_launches[name] <= 0:
             raise AssertionError("%s never launched on the host-engine path"
@@ -1785,10 +2087,11 @@ def main():
     log("proof: launches host path %s, production path %s (prod-scale %s; "
         "rescue reached the fold: %s; device verify in the rescue: %d "
         "calls), family path %s (K1: the router %d + per-gene placements "
-        "%d); jax imported: no; hgtpu imported: no; native library loaded: "
-        "yes" % (host_launches, prod_launches, scale_launches, scale_fold,
-                 scale_dp, fam_launches, fam_proof["router"],
-                 fam_proof["gene"]))
+        "%d), assembly run %s; jax imported: no; hgtpu imported: no; "
+        "native library loaded: yes"
+        % (host_launches, prod_launches, scale_launches, scale_fold,
+           scale_dp, fam_launches, fam_proof["router"], fam_proof["gene"],
+           asm_launches))
     log("wall: chip_smoke %.1f s" % (time.perf_counter() - t_start))
 
     order = ("name", "route", "source", "replaces", "launches",

@@ -1,8 +1,8 @@
 """hgtpu_torch — the PyTorch / CUDA port of hgtpu for one NVIDIA H100.
 
 Mirrors hgtpu's layout (``db``, ``sim``, ``utils``, ``ops``, ``align``,
-``typer``, ``parallel``, ``pipeline``) and is held bit for bit against
-it.  It imports torch and numpy, and nothing of hgtpu or jax: the host
+``typer``, ``assemble``, ``parallel``, ``pipeline``, ``cli``, ``tools``)
+and is held bit for bit against it.  It imports torch and numpy, and nothing of hgtpu or jax: the host
 modules it shares with hgtpu are its own copies.
 
 Every device function takes an explicit ``device``; ``default_device()``

@@ -156,18 +156,9 @@ def typing_options_from_args(args, debug=None):
 
 
 def main_one(args, debug, device):
-    from ..pipeline.genotype import _check_ported
-
     if args.aligner not in ("hisat2", "bowtie2"):
         print("Error: unsupported aligner '%s' (hisat2 or bowtie2)"
               % args.aligner, file=sys.stderr)
-        return 1
-    try:
-        # options whose paths are not ported (--assembly) fail here, in
-        # every mode, before any per-gene handler could log them away
-        _check_ported(typing_options_from_args(args, debug))
-    except NotImplementedError as e:
-        print("Error: %s" % e, file=sys.stderr)
         return 1
     if args.reference_type == "chromosome":
         # the reference's chromosome mode needs per-chromosome backbones
@@ -292,6 +283,9 @@ def run_simulation(args, debug, catalog, locus_list, opts,
 
     total_passed = 0
     total = 0
+    def report_base_for(t):
+        return os.path.join(args.out_dir, "%s-%s.test-%d"
+                            % (args.output_base, args.base_fname, t + 1))
 
     from ..utils.runlog import RunLog
     runlog = RunLog(args.out_dir)
@@ -306,10 +300,9 @@ def run_simulation(args, debug, catalog, locus_list, opts,
                 perbase_errorrate=args.perbase_errorrate,
                 perbase_snprate=args.perbase_snprate,
                 skip_fragment_regions=skip_regions, opts=opts,
+                report_base_fn=report_base_for if opts.assembly else None,
                 test_list=test_list, test_ids=test_ids,
                 sim_gene=(full_genes or {}).get(gene), device=device)
-        except NotImplementedError:
-            raise   # an unported path is the run's failure, not a gene's
         except Exception:
             # per-gene failure: log the traceback and keep going (the
             # reference captures per-job tracebacks into the date-stamped
@@ -329,6 +322,15 @@ def run_simulation(args, debug, catalog, locus_list, opts,
             w.begin_aligner()
             w.gene_result(res, simulation=True, true_alleles=true_alleles,
                           best_alleles=args.best_alleles)
+            if opts.assembly:
+                w.assembly_detail(res.contigs)
+                w.assembly_calls({gene: res.assembly_call})
+                if res.contigs:
+                    with open(report_base + ".fasta", "w") as f:
+                        for key, seq in res.contigs.items():
+                            print(">%s" % key, file=f)
+                            for s in range(0, len(seq), 60):
+                                print(seq[s:s + 60], file=f)
             w.close()
         total_passed += n
         total += len(results) * allele_count
@@ -441,6 +443,17 @@ def run_reads(args, catalog, locus_list, opts, device):
         w.gene_result(res, simulation=False,
                       output_allele_counts=args.output_allele_counts,
                       best_alleles=args.best_alleles)
+    if opts.assembly:
+        for g in locus_list:
+            w.assembly_detail(results[g].contigs)
+        w.assembly_calls({g: results[g].assembly_call for g in locus_list})
+        for g in locus_list:
+            if results[g].contigs:
+                with open("%s.fasta" % report_base, "a") as f:
+                    for key, seq in results[g].contigs.items():
+                        print(">%s" % key, file=f)
+                        for s in range(0, len(seq), 60):
+                            print(seq[s:s + 60], file=f)
     w.close()
     print("Report written to %s.report" % report_base, file=sys.stderr)
     return 0

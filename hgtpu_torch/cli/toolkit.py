@@ -1,5 +1,5 @@
 # Port of hgtpu/cli/toolkit.py: the same commands, each typing or routing
-# on the device main.pick_device gives; four wait for their tools modules.
+# on the device main.pick_device gives.
 """Toolkit CLI — the `hisatgenotype_toolkit` equivalent
 (ref: hisatgenotype_toolkit:37-103 dispatches subcommands by name).
 
@@ -12,13 +12,12 @@ Subcommands:
                   (ref: .../hisatgenotype_locus.py)
   parse-results   collapse .report files into final calls
                   (ref: .../hisatgenotype_parse_results.py)
-  inspect, build-genome, samples, hla-cyp   as in hgtpu
+  inspect, build-genome, samples, hla-cyp, extract-codis-data,
+  convert-codis, extract-rbg, compare      as in hgtpu
 
 extract-reads, locus, samples and hla-cyp run on a CUDA device unless
 asked otherwise (`main(argv, device=...)`, or HGTPU_TORCH_DEVICE=cpu);
-without a card they exit with an error.  convert-codis,
-extract-codis-data, extract-rbg and compare are not ported yet (ROADMAP
-item 16): they exit nonzero and run nothing.
+without a card they exit with an error.  The others are host work.
 """
 from __future__ import annotations
 
@@ -28,14 +27,6 @@ import sys
 
 from . import args as A
 from .main import DeviceUnavailable, pick_device
-
-# command -> the hgtpu tools modules it waits for
-UNPORTED = {
-    "compare": "tools/compare.py",
-    "convert-codis": "tools/codis.py, tools/codis_fetch.py",
-    "extract-codis-data": "tools/codis_fetch.py",
-    "extract-rbg": "tools/rbg.py",
-}
 
 
 def cmd_extract_vars(argv, device=None):
@@ -287,6 +278,34 @@ def cmd_build_genome(argv, device=None):
     return 0
 
 
+def cmd_extract_codis_data(argv, device=None):
+    p = argparse.ArgumentParser(prog="hgtpu_torch extract-codis-data")
+    p.add_argument("--base", dest="base_fname", type=str, default="codis")
+    p.add_argument("--locus-list", dest="locus_list", type=str, default="")
+    p.add_argument("--html-dir", dest="html_dir", type=str, default="",
+                   help="directory of saved STRBase str_<locus>.htm pages")
+    p.add_argument("--download", action="store_true",
+                   help="fetch pages over the network (needs egress)")
+    p.add_argument("--verbose", action="store_true")
+    args = p.parse_args(argv)
+
+    from ..tools.codis_fetch import (dir_source, extract_codis_data,
+                                     url_source)
+    if args.html_dir:
+        source = dir_source(args.html_dir)
+    elif args.download:
+        source = url_source()
+    else:
+        print("extract-codis-data: pass --html-dir DIR (offline pages) "
+              "or --download", file=sys.stderr)
+        return 1
+    loci = [x for x in args.locus_list.split(",") if x]
+    n = extract_codis_data(args.base_fname + ".dat", source, loci or None,
+                           verbose=args.verbose)
+    print("%d alleles -> %s.dat" % (n, args.base_fname), file=sys.stderr)
+    return 0
+
+
 def cmd_samples(argv, device=None):
     """Batch sample runner — the reference's hisatgenotype_locus_samples
     (locus_samples.py:120-340): type every extracted sample in a
@@ -464,8 +483,133 @@ def cmd_hla_cyp(argv, device=None):
     return rc
 
 
+def cmd_convert_codis(argv, device=None):
+    """CODIS .dat -> typable database — the reference's
+    hisatgenotype_convert_codis (convert_codis.py:402-686), with
+    --min-freq filtering against a frequency table (the offline analog of
+    the NIST-US1036 allele-frequency sheet, :413-433)."""
+    p = argparse.ArgumentParser(prog="hgtpu_torch convert-codis")
+    A.args_common(p)
+    A.args_databases(p)
+    A.args_convert_codis(p)
+    p.add_argument("--dat", dest="dat", type=str, default="codis.dat",
+                   help="locus/allele/structure TSV from "
+                        "extract-codis-data")
+    p.add_argument("--freq-table", dest="freq_table", type=str, default="",
+                   help="TSV locus<TAB>allele<TAB>frequency used by "
+                        "--min-freq")
+    p.add_argument("--flank5", type=str, default="")
+    p.add_argument("--flank3", type=str, default="")
+    args = p.parse_args(argv)
+
+    from ..db import build_catalog_from_msa
+    from ..db.catalog import export_text
+    from ..tools.codis import codis_msa
+    from ..tools.codis_fetch import read_codis_dat
+
+    table = read_codis_dat(args.dat)
+    freq = {}
+    if args.min_freq > 0.0:
+        if not args.freq_table:
+            print("Error: --min-freq needs --freq-table "
+                  "(locus\\tallele\\tfrequency TSV)", file=sys.stderr)
+            return 1
+        for line in open(args.freq_table):
+            locus, allele, f = line.rstrip("\n").split("\t")
+            freq.setdefault(locus, {})[allele] = float(f)
+
+    locus_list = [g for g in args.locus_list.split(",") if g]
+    specs = {}
+    for locus, alleles in sorted(table.items()):
+        if locus_list and locus not in locus_list:
+            continue
+        if args.min_freq > 0.0:
+            alleles = [(a, s) for a, s in alleles
+                       if freq.get(locus, {}).get(a, 0.0) >= args.min_freq]
+        if not alleles:
+            continue
+        names, rows = codis_msa(alleles, args.flank5, args.flank3)
+        names = ["%s*%s" % (locus, n) for n in names]
+        # exon span in reference-allele (gap-stripped) coordinates
+        ref_len = len(rows[0].replace(".", ""))
+        specs[locus] = dict(names=names, rows=rows, ref_allele=names[0],
+                            exons=[(0, ref_len - 1)])
+        print("%s: %d alleles" % (locus, len(names)), file=sys.stderr)
+    cat = build_catalog_from_msa(args.base_fname, specs, min_var_freq=0.0)
+    export_text(cat, os.path.join(args.ix_dir, args.base_fname))
+    print("Database written to %s/%s.*" % (args.ix_dir, args.base_fname),
+          file=sys.stderr)
+    return 0
+
+
+def cmd_extract_rbg(argv, device=None):
+    """Blood-group DB from GenBank flat files — the reference's
+    hisatgenotype_extract_RBG (extract_RBG.py:41-198 fetches NCBI
+    records per allele accession; here they come from local files)."""
+    p = argparse.ArgumentParser(prog="hgtpu_torch extract-rbg")
+    A.args_common(p)
+    A.args_databases(p)
+    p.add_argument("--genbank", dest="genbank", required=True,
+                   help="comma-separated GenBank flat files (multi-record "
+                        "OK); record 0 per gene is the reference allele")
+    args = p.parse_args(argv)
+
+    from ..db import build_catalog_from_msa
+    from ..db.catalog import export_text
+    from ..tools.rbg import convert_rbg_genbank, parse_record, \
+        split_records
+
+    paths = [f for f in args.genbank.split(",") if f]
+    genes = set()
+    for path in paths:
+        for rec in split_records(open(path).read()):
+            genes.update(parse_record(rec)["genes"])
+    locus_list = [g for g in args.locus_list.split(",") if g]
+    if locus_list:
+        genes &= set(locus_list)
+    specs = {}
+    for gene in sorted(genes):
+        names, rows, exons = convert_rbg_genbank(paths, gene)
+        ref_len = len(rows[0].replace(".", ""))
+        specs[gene] = dict(names=names, rows=rows, ref_allele=names[0],
+                           exons=exons or [(0, ref_len - 1)])
+        print("%s: %d alleles" % (gene, len(names)), file=sys.stderr)
+    if not specs:
+        print("Error: no genes found in %s" % args.genbank,
+              file=sys.stderr)
+        return 1
+    cat = build_catalog_from_msa(args.base_fname, specs, min_var_freq=0.0)
+    export_text(cat, os.path.join(args.ix_dir, args.base_fname))
+    print("Database written to %s/%s.*" % (args.ix_dir, args.base_fname),
+          file=sys.stderr)
+    return 0
+
+
+def cmd_compare(argv, device=None):
+    """Concordance of our typing calls against an external truth table
+    (the reference's etc/compare_HLA.py harness, offline)."""
+    p = argparse.ArgumentParser(prog="hgtpu_torch compare")
+    p.add_argument("calls", help="our typing table (sample\\tGENE*allele"
+                                 "[\\tabundance])")
+    p.add_argument("truth", help="external truth table (same format; "
+                                 "e.g. UTSW / Omixon / Platinum gold)")
+    p.add_argument("--genes", type=str, default="",
+                   help="comma-separated gene list (default: HLA core)")
+    args = p.parse_args(argv)
+
+    from ..tools.compare import HLA_GENES, compare_tables, format_report
+
+    genes = tuple(g for g in args.genes.split(",") if g) or HLA_GENES
+    print(format_report(compare_tables(args.calls, args.truth,
+                                       genes=genes)))
+    return 0
+
+
 COMMANDS = {
+    "compare": cmd_compare,
     "extract-vars": cmd_extract_vars,
+    "extract-rbg": cmd_extract_rbg,
+    "extract-codis-data": cmd_extract_codis_data,
     "extract-reads": cmd_extract_reads,
     "locus": cmd_locus,
     "parse-results": cmd_parse_results,
@@ -473,6 +617,7 @@ COMMANDS = {
     "build-genome": cmd_build_genome,
     "samples": cmd_samples,
     "hla-cyp": cmd_hla_cyp,
+    "convert-codis": cmd_convert_codis,
 }
 
 
@@ -482,16 +627,9 @@ def main(argv=None, device=None):
     argv = argv if argv is not None else sys.argv[1:]
     if not argv or argv[0] in ("-h", "--help"):
         print("usage: python -m hgtpu_torch.cli.toolkit <command> "
-              "[options]\ncommands: %s\nnot ported yet (ROADMAP item "
-              "16): %s" % (", ".join(sorted(COMMANDS)),
-                           ", ".join(sorted(UNPORTED))))
+              "[options]\ncommands: %s" % ", ".join(sorted(COMMANDS)))
         return 0
     cmd = argv[0]
-    if cmd in UNPORTED:
-        print("Error: toolkit command '%s' is not ported yet: it waits "
-              "for hgtpu's %s (ROADMAP item 16)" % (cmd, UNPORTED[cmd]),
-              file=sys.stderr)
-        return 1
     if cmd not in COMMANDS:
         print("unknown command: %s" % cmd, file=sys.stderr)
         return 1

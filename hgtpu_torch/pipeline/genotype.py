@@ -23,14 +23,6 @@ from ..align import GeneAligner
 from ..typer.engine import TypingOptions, type_gene
 
 
-def _check_ported(opts):
-    """Options whose paths are not ported yet raise instead of quietly
-    running something else."""
-    if opts.assembly:
-        raise NotImplementedError(
-            "assembly is not ported yet (ROADMAP item 15)")
-
-
 def type_reads_linear(gene: GeneRef, reads_1, reads_2=None, opts=None,
                       device=None):
     """Linear-index typing (--aligner bowtie2 / --linear-index): exact
@@ -82,7 +74,6 @@ def type_reads(gene: GeneRef, reads_1, reads_2=None, opts=None,
     staged numpy EM.  `device` defaults to the aligner's device, else to
     hgtpu_torch.default_device()."""
     opts = opts or TypingOptions()
-    _check_ported(opts)
     if device is None and aligner is not None:
         device = aligner.device
     device = resolve_device(device)
@@ -143,7 +134,6 @@ def type_family(catalog, reads_1, reads_2=None, locus_list=None, opts=None,
     from ..align.family import FamilyAligner
 
     opts = opts or TypingOptions()
-    _check_ported(opts)
     if device is None and family_aligner is not None:
         device = next(iter(family_aligner.aligners.values())).device
     device = resolve_device(device)

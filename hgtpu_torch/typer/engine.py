@@ -1066,7 +1066,90 @@ def type_gene(gene: GeneRef, read_alns, opts: TypingOptions = None,
 
 def _run_assembly(gene: GeneRef, typer: GeneTyper, novel: NovelVars,
                   asm_reads, prob):
-    """Guided de Bruijn assembly is not ported: hgtpu.assemble needs jax,
-    and its guided_debruijn must not be duplicated."""
-    raise NotImplementedError(
-        "assembly is not ported yet (ROADMAP item 15)")
+    """Guided de Bruijn assembly + Viterbi phasing over the collected read
+    haplotypes (ref: typing_core.py:1791-1838, 2014-2070)."""
+    from ..assemble.graph import AssemblyGraph
+    from ..assemble.nodes import allele_node, read_nodes_from_hts
+
+    var_table = VarTable(gene, novel.meta)
+    predicted = {}
+    for allele_name, p in prob:
+        if p < 0.1:
+            break
+        predicted[allele_name] = allele_node(gene, allele_name, var_table)
+        if len(predicted) >= 2:
+            break
+    graph = AssemblyGraph(gene.backbone, var_table, gene.exons,
+                          gene.primary_exons,
+                          predicted_allele_nodes=predicted)
+    for read_id, per_mate in asm_reads:
+        for aln, hts in per_mate:
+            base_id = aln.read_id.split("|")[0]
+            node_read_id = "%s|%s" % (base_id, aln.mate)
+            for nid, cmp_i, node in read_nodes_from_hts(
+                    gene, var_table, node_read_id, hts, aln.seq):
+                graph.add_node(nid, cmp_i, node)
+    if not graph.nodes:
+        return None, None
+    panels = []
+    if typer.opts.report_base:
+        from ..assemble.pdf import panel_from_nodes
+        panels.append(("a. Read alignment",
+                       panel_from_nodes(graph, gene, graph.nodes)))
+    try:
+        call = graph.guided_debruijn()
+    except Exception:
+        return None, None
+    if typer.opts.report_base:
+        from ..assemble.pdf import draw_assembly, panel_from_nodes
+        panels.append(("b. Assembly",
+                       panel_from_nodes(graph, gene, graph.nodes)))
+        if graph.nodes2:
+            panels.append(("c. Assembly with known alleles",
+                           panel_from_nodes(graph, gene, graph.nodes2)))
+        shown = [a for a in typer.opts.display_alleles
+                 if a in gene.allele_names]
+        if shown:
+            # --display-alleles: one track per allele with its catalog
+            # variant positions ticked (the reference draws these allele
+            # rows in its HTML view, assembly_graph.py display_alleles)
+            panels.append(("d. Display alleles", [
+                (name, 0, len(gene.backbone) - 1,
+                 [int(gene.var_pos[i])
+                  for i in gene.allele_var_indices(name)])
+                for name in shown]))
+        try:
+            graph.calculate_coverage()
+            draw_assembly("%s.%s.pdf" % (typer.opts.report_base, gene.gene),
+                          len(gene.backbone), panels,
+                          coverage=graph.coverage, exons=gene.exons)
+        except Exception:
+            pass
+
+    # contig calls: closest catalog allele, Known if variant-identical
+    # (ref: typing_core.py:2014-2070)
+    contigs = {}
+    allele_var_sets = {
+        name: {gene.var_ids[i] for i in gene.allele_var_indices(name)}
+        for name in gene.allele_names
+    }
+    cnt = 0
+    for node_name, node in graph.nodes.items():
+        nvars = set(node.get_var_ids())
+        max_common = None
+        best = []
+        for name, avars in allele_var_sets.items():
+            tmp = len(nvars & avars) - len(nvars | avars)
+            if max_common is None or tmp > max_common:
+                max_common = tmp
+                best = [name]
+            elif tmp == max_common:
+                best.append(name)
+        is_known = any(nvars == allele_var_sets[b] & nvars
+                       and len(allele_var_sets[b] - nvars) == 0
+                       for b in best)
+        key = "%s contig %d %s" % (node_name, cnt,
+                                   best[0] if is_known else "Novel")
+        contigs[key] = node.get_seq()
+        cnt += 1
+    return call, contigs

@@ -4,19 +4,20 @@
 ``hgtpu.cli.main.main(argv)`` run in process on the same text databases
 and reads; every ``.report`` they write must be byte-identical except the
 line after ``# COMMAND:`` (the process's own argv), in every mode the
-command line has.  ``--keep-alignment``'s SAM files and the toolkit's
-outputs (``extract-vars``, ``extract-reads``, ``parse-results``,
-``inspect``, ``build-genome``) must be byte-identical too.  The two
-parsers must register the same flags, defaults, dests and choices, and
-map them to equal TypingOptions.  ``--assembly`` and the toolkit
-commands not ported yet fail loudly, and with no card the port refuses
-to run unless the CPU is asked for.  ``python -m hgtpu_torch`` and
+command line has, ``--assembly`` included.  ``--assembly``'s ``.fasta``
+and ``.pdf`` files, ``--keep-alignment``'s SAM files and the toolkit's
+outputs (every command hgtpu's toolkit has) must be byte-identical too.
+The two parsers must register the same flags, defaults, dests and
+choices, and map them to equal TypingOptions, and the two toolkits the
+same commands.  With no card the port refuses to run unless the CPU is
+asked for.  ``python -m hgtpu_torch`` and
 ``python -m hgtpu_torch.cli.toolkit`` run once each as subprocesses with
 HGTPU_TORCH_DEVICE=cpu.
 """
 import dataclasses
 import gzip
 import os
+import random
 import subprocess
 import sys
 
@@ -155,6 +156,8 @@ MODES = {
         "--no-partial", "-1", p["s1"], "-2", p["s2"]],
     "exclude_allele_list": lambda p: _gene(p) + [
         "--exclude-allele-list", p["truth"], "-1", p["s1"], "-2", p["s2"]],
+    "assembly_simulation": lambda p: MODES["simulation"](p) + ["--assembly"],
+    "assembly_paired": lambda p: MODES["paired"](p) + ["--assembly"],
 }
 
 
@@ -184,6 +187,17 @@ def _assert_same_reports(h, t):
     return names
 
 
+def _assert_same_files(h, t, suffix):
+    """Every `suffix` file of hgtpu's run, byte for byte in the port's."""
+    names = sorted(f for f in os.listdir(h) if f.endswith(suffix))
+    assert names and names == sorted(
+        f for f in os.listdir(t) if f.endswith(suffix))
+    for name in names:
+        want = open(os.path.join(h, name), "rb").read()
+        assert open(os.path.join(t, name), "rb").read() == want, name
+    return names
+
+
 @pytest.mark.parametrize("mode", sorted(MODES))
 def test_reports_equal_hgtpu(inputs, tmp_path, mode):
     rc_h, rc_t, h, t = _run_both(MODES[mode](inputs), tmp_path)
@@ -191,8 +205,22 @@ def test_reports_equal_hgtpu(inputs, tmp_path, mode):
     names = _assert_same_reports(h, t)
     text = open(os.path.join(t, names[0])).read()
     assert "ranked" in text
-    if mode == "simulation":
+    if mode in ("simulation", "assembly_simulation"):
         assert len(names) == 2 and "*** 1 ranked" in text
+    if mode.startswith("assembly"):
+        # the contigs and the assembly plots, one per report and gene
+        fastas = _assert_same_files(h, t, ".fasta")
+        pdfs = _assert_same_files(h, t, ".pdf")
+        assert len(fastas) == len(names)
+        assert len(pdfs) == len(names) * (3 if mode.endswith("paired")
+                                          else 1)
+        for name in pdfs:
+            data = open(os.path.join(t, name), "rb").read()
+            assert data.startswith(b"%PDF") and data.endswith(b"%%EOF\n")
+        for name in names:
+            text = open(os.path.join(t, name)).read()
+            calls = text.split("Assembly Coloring Allele Collapse:")[1]
+            assert "Group score: 1.00000" in calls and "NONE" not in calls
     if mode in ("bowtie2", "no_partial"):
         assert "1 ranked %s (abundance:" % inputs["truth"] in text
     if mode == "exclude_allele_list":
@@ -207,13 +235,10 @@ def test_keep_alignment_sam_equal(inputs, tmp_path):
     rc_h, rc_t, h, t = _run_both(argv, tmp_path)
     assert rc_h == rc_t == 0
     _assert_same_reports(h, t)
-    sams = sorted(f for f in os.listdir(h) if f.endswith(".sam"))
+    sams = _assert_same_files(h, t, ".sam")
     assert len(sams) == 3
-    assert sams == sorted(f for f in os.listdir(t) if f.endswith(".sam"))
     for name in sams:
-        want = open(os.path.join(h, name), "rb").read()
-        assert open(os.path.join(t, name), "rb").read() == want, name
-        assert want.count(b"\n") > 10
+        assert open(os.path.join(t, name), "rb").read().count(b"\n") > 10
 
 
 # --------------------------------------------------------------------- #
@@ -277,6 +302,58 @@ def _tk_build_genome(p, out):
             "hla", "--ix-dir", p["fam_db"], "--clinvar", vcf], "--out-dir"
 
 
+def _tk_extract_codis_data(p, out):
+    from tests.test_torch_tools import HTML
+
+    pages = out / "pages"
+    pages.mkdir()
+    (pages / "str_D18S51.htm").write_text(HTML)
+    return ["extract-codis-data", "--html-dir", str(pages), "--locus-list",
+            "D18S51,FGA"], "dat"
+
+
+def _tk_convert_codis(p, out):
+    from tests.test_tools import _flanks
+
+    f5, f3 = _flanks(7, 300)
+    dat = out / "codis.dat"
+    dat.write_text("".join("D3S1358\t%d\t[TCTA]%d\n" % (n, n)
+                           for n in (14, 15, 16, 17))
+                   + "D18S51\t14.2\t[AGAA]13 GA [AGAA]1\n"
+                   + "D18S51\t13\t[AGAA]13\n")
+    freqs = out / "freq.tsv"
+    freqs.write_text("D3S1358\t14\t0.10\nD3S1358\t15\t0.30\n"
+                     "D3S1358\t16\t0.005\nD3S1358\t17\t0.20\n"
+                     "D18S51\t14.2\t0.05\nD18S51\t13\t0.2\n")
+    return ["convert-codis", "--base", "codis", "--dat", str(dat),
+            "--freq-table", str(freqs), "--min-freq", "0.01",
+            "--flank5", f5, "--flank3", f3], "--ix-dir"
+
+
+def _tk_extract_rbg(p, out):
+    from tests.test_cli import _rbg_variants
+    from tests.test_tools import _genbank_record
+
+    rng = random.Random(21)
+    seq = "".join(rng.choice("ACGT") for _ in range(1200))
+    exons = [(41, 400), (501, 1100)]
+    gb = out / "gypb.gb"
+    gb.write_text("\n".join(
+        _genbank_record("RB%03d" % k, "GYPB", s, exons)
+        for k, s in enumerate(_rbg_variants(seq, rng))) + "\n")
+    return ["extract-rbg", "--base", "rbg", "--genbank", str(gb)], \
+        "--ix-dir"
+
+
+def _tk_compare(p, out):
+    from tests.test_torch_tools import CALLS, TRUTH
+
+    calls, truth = out / "calls.tsv", out / "truth.tsv"
+    calls.write_text("\n".join(CALLS) + "\n")
+    truth.write_text("\n".join(TRUTH) + "\n")
+    return ["compare", str(calls), str(truth), "--genes", "A"], "stdout"
+
+
 TOOLKIT = {
     "extract_vars": _tk_extract_vars,
     "extract_reads_panel": _tk_extract_reads_panel,
@@ -284,6 +361,10 @@ TOOLKIT = {
     "parse_results": _tk_parse_results,
     "inspect": _tk_inspect,
     "build_genome": _tk_build_genome,
+    "extract_codis_data": _tk_extract_codis_data,
+    "convert_codis": _tk_convert_codis,
+    "extract_rbg": _tk_extract_rbg,
+    "compare": _tk_compare,
 }
 
 
@@ -299,16 +380,27 @@ def test_toolkit_outputs_equal_hgtpu(inputs, tmp_path, capsys, command):
             a = argv + [str(d / "calls.csv")]
         elif where == "file":
             a = argv + [str(d / "inspect.fa")]
+        elif where == "dat":
+            a = argv + ["--base", str(d / "codis")]
+        elif where == "stdout":
+            a = argv
         else:
             a = argv + [where, str(d)]
         capsys.readouterr()
         assert run(a) == 0
         outputs[side] = (_tree(d), capsys.readouterr().out)
     files, stdout = outputs["h"]
-    assert files and outputs["t"] == (files, stdout)
-    assert any(files.values())
+    assert outputs["t"] == (files, stdout)
+    if where == "stdout":
+        assert not files and "Level: 1" in stdout
+    else:
+        assert any(files.values())
     if command == "parse_results":
         assert stdout.startswith("assembly_graph-hla.test-1\tA\t")
+    if command == "convert_codis":
+        # --min-freq dropped the rare allele
+        text = files["codis.allele"].decode()
+        assert "D3S1358*16" not in text and "D3S1358*17" in text
 
 
 def test_toolkit_samples_and_hla_cyp_equal_hgtpu(inputs, tmp_path, capsys):
@@ -338,36 +430,6 @@ def test_toolkit_samples_and_hla_cyp_equal_hgtpu(inputs, tmp_path, capsys):
 
 
 # --------------------------------------------------------------------- #
-# loud failures
-# --------------------------------------------------------------------- #
-FAILURES = {
-    "assembly_simulation": (
-        "cli", lambda p: MODES["simulation"](p) + ["--assembly"], "item 15"),
-    "assembly_reads": (
-        "cli", lambda p: MODES["paired"](p) + ["--assembly"], "item 15"),
-}
-for _cmd in sorted(toolkit.UNPORTED):
-    FAILURES["toolkit_" + _cmd] = (
-        "toolkit", lambda p, c=_cmd: [c, "--help"], "item 16")
-
-
-@pytest.mark.parametrize("case", sorted(FAILURES))
-def test_unported_paths_fail_loudly(inputs, tmp_path, capsys, case):
-    entry, argv, item = FAILURES[case]
-    argv = argv(inputs)
-    if entry == "cli":
-        rc = cli.main(argv + ["--out-dir", str(tmp_path)], device="cpu")
-        assert not any(f.endswith(".report") for f in os.listdir(tmp_path))
-    else:
-        assert argv[0] in jax_toolkit.COMMANDS
-        rc = toolkit.main(argv, device="cpu")
-    err = capsys.readouterr().err
-    assert rc != 0
-    assert "ROADMAP %s" % item in err
-    assert "unknown command" not in err
-
-
-# --------------------------------------------------------------------- #
 # flag tables
 # --------------------------------------------------------------------- #
 def _actions(parser):
@@ -394,11 +456,22 @@ def test_reference_flag_registry_complete():
 
     want = flags("hgtpu")
     assert {"assembly", "region-list", "bamfile", "min-freq", "clinvar",
-            "novel_allele_detection", "platinum-check"} <= want
-    # the flags only hgtpu's four unported toolkit commands define
-    unported = {"html-dir", "download", "dat", "freq-table", "flank5",
-                "flank3", "genbank", "genes"}
-    assert want - flags("hgtpu_torch") == unported
+            "novel_allele_detection", "platinum-check", "html-dir",
+            "download", "dat", "freq-table", "flank5", "flank3", "genbank",
+            "genes"} <= want
+    assert want - flags("hgtpu_torch") == set()
+
+
+def test_toolkit_commands_equal_hgtpu(capsys):
+    """The port's toolkit has hgtpu's commands, in hgtpu's order, and
+    every one of them parses its --help."""
+    assert list(toolkit.COMMANDS) == list(jax_toolkit.COMMANDS)
+    assert not hasattr(toolkit, "UNPORTED")
+    for cmd in toolkit.COMMANDS:
+        with pytest.raises(SystemExit) as e:
+            toolkit.main([cmd, "--help"], device="cpu")
+        assert e.value.code == 0
+    assert toolkit.main(["no-such-command"], device="cpu") == 1
 
 
 def test_flag_behavior_table():

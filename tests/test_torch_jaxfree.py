@@ -1,10 +1,11 @@
 """hgtpu_torch stands alone: a subprocess with jax and hgtpu blocked
 imports every module of the port, builds and simulates a tiny gene with
 the port's own db and sim, and types it on the host-engine path and on
-the production path, types a 3-gene family, searches an FM index,
-extracts reads against a genotype genome, and runs the command line's
-simulation on a text database the port wrote; and no source file of the
-port, nor chip_smoke.py or measure_gpu.py, imports jax or hgtpu."""
+the production path, assembles and phases it (assembly=True), types a
+3-gene family, searches an FM index, extracts reads against a genotype
+genome, runs the command line's simulation on a text database the port
+wrote and the toolkit's compare; and no source file of the port, nor
+chip_smoke.py or measure_gpu.py, imports jax or hgtpu."""
 import ast
 import os
 import subprocess
@@ -38,6 +39,12 @@ for kw in (dict(device_counting="off"), dict(device_counting="on"),
                      [(r.name, r.seq) for r in r2],
                      TypingOptions(simulation=True, **kw), device="cpu")
     assert res.prob[0][0] == truth, res.prob[:3]
+# guided assembly and phasing
+res = type_reads(gene, [(r.name, r.seq) for r in r1],
+                 [(r.name, r.seq) for r in r2],
+                 TypingOptions(simulation=True, assembly=True), device="cpu")
+assert res.assembly_call is not None and res.contigs, res.assembly_call
+assert res.assembly_call[0] == [truth, truth], res.assembly_call
 # device verify (the DP's plain version) and the pure-device programs
 from hgtpu_torch.align import GeneAligner
 from hgtpu_torch.align.native_verify import native_available
@@ -100,6 +107,13 @@ with tempfile.TemporaryDirectory() as tmp:
               device="cpu")
     assert rc == 0
     assert os.listdir(tmp + "/out") == ["assembly_graph-hla.test-1.report"]
+    from hgtpu_torch.cli import toolkit
+    with open(tmp + "/calls.tsv", "w") as f:
+        f.write("s1\tA*01:01:01\t0.6\ns1\tA*02:05\t0.4\n")
+    with open(tmp + "/truth.tsv", "w") as f:
+        f.write("s1\tA*01:01\ns1\tA*02:05\n")
+    assert toolkit.main(["compare", tmp + "/calls.tsv", tmp + "/truth.tsv",
+                         "--genes", "A"], device="cpu") == 0
 assert sys.modules["jax"] is None and sys.modules["hgtpu"] is None
 assert type(gene).__module__ == "hgtpu_torch.db.catalog"
 print("TYPED", truth)

@@ -101,22 +101,20 @@ def test_shared_state_does_not_collide(generef, read_sets):
     (dict(assembly=True), "assembly"),
 ])
 def test_unported_options_raise(generef, read_sets, opts, match):
-    """assembly raises; linear_typing, ported with ops/fm.py, no longer
-    does and returns hgtpu's result (tests/test_torch_fm.py holds it
-    further)."""
+    """Neither option raises any more: linear_typing (ported with
+    ops/fm.py; tests/test_torch_fm.py holds it further) and assembly
+    (ported with assemble/; tests/test_torch_assembly.py) each return
+    hgtpu's result."""
     reads_1, reads_2 = read_sets[0.0]
     args = (reads_1[:40], reads_2[:40])
-    if "linear_typing" in opts:
-        got = type_reads(carried(generef), *args,
-                         TypingOptions(simulation=True, **opts), device="cpu")
-        want = jax_type_reads(generef, *args,
-                              JaxOptions(simulation=True, **opts))
-        assert_same_result(got, want)
-        assert got.prob
-        return
-    with pytest.raises(NotImplementedError, match=match):
-        type_reads(carried(generef), *args,
-                   TypingOptions(simulation=True, **opts), device="cpu")
+    got = type_reads(carried(generef), *args,
+                     TypingOptions(simulation=True, **opts), device="cpu")
+    want = jax_type_reads(generef, *args,
+                          JaxOptions(simulation=True, **opts))
+    assert_same_result(got, want)
+    assert got.prob
+    if "assembly" in opts:
+        assert got.assembly_call is not None and got.contigs
 
 
 def test_simulation_sweep_calls_truth(generef):
