@@ -16,7 +16,11 @@ hgtpu_torch.pipeline.type_reads and checks them phase by phase:
     verify on the banded DP kernel beside the native verifier,
     haplotypes, the device fold on K2, the staged EM;
   * the pure-device programs: hgtpu_torch.entry.dryrun_multichip(1) and
-    ShardedTyper.call_pairs (ungated count, device EM);
+    (2) and ShardedTyper.call_pairs (ungated count, device EM);
+  * many devices on the one card: a mesh of 2 shards on cuda:0, two
+    ranks on cuda:0 over gloo and a one-rank "cpu:gloo,cuda:nccl" world
+    (hgtpu_torch.parallel.sharded, multihost), each held against one
+    process on one shard;
   * one sample over a family (hgtpu_torch.pipeline.type_family): the
     panel router (one K1 product over every gene's PWM, a segment max),
     the NH==1 rule, then each gene on the host engine (K1 placement, the
@@ -79,11 +83,26 @@ Phases:
              run, num_reads, num_pairs and counts exact, prob within 1e-9
              with the same ranking); truths on top; warm wall, reads/s,
              punt count, TRACE stages
-  dryrun     dryrun_multichip(1) on the card (production path and
-             call_allele on the tiny gene, truth called), and
+  dryrun     dryrun_multichip(1) and (2) on the card (production path
+             and call_allele on the tiny gene, truth called), and
              ShardedTyper(em_iters=300).call_pairs on the scale panel
              (tests/test_hla_scale.py's indel-carrying truth): truth
              called, totals, n_used and punt equal to the port's CPU run
+  mesh       the scale cell on a mesh of 2 shards on cuda:0: count_classes'
+             mesh-invariant fields (pileup, punt, exclusion, counts, each
+             level's totals and aggregated classes) equal to the one-shard
+             typer's, type_reads_device field for field equal to
+             prod-scale's, its K1, K2 and DP launches counted (counts set
+             to 0 just before, read just after); then two ranks on cuda:0
+             (backend="gloo": NCCL refuses two ranks on one card) and a
+             one-rank world (the default "cpu:gloo,cuda:nccl"), each rank
+             its own process: type_reads_device_distributed on its half
+             of the pairs equal to prod-scale's result, distributed_call
+             on its half of the padded single-end codes equal to one
+             process's run over a mesh of as many shards (prob within
+             1e-6, totals, n_used and punt exact), an all_reduce on the
+             card through the group; walls, TRACE's dist.pileup,
+             dist.classes and dist.rescue, launches per rank
   family     tests/synth.make_family's six genes (A, B, C, DQA1, DQB1,
              DRB1) x 200 alleles x 3.5 kb through build_catalog_from_msa,
              a heterozygous truth pair per gene (simulate_interval=2) and
@@ -155,7 +174,8 @@ wrapped call, tens of microseconds, would swamp a small kernel),
 bound_ms / bound_by the least time the card could take for the same
 work, launches the main path's count (the family path's for the K1
 records at the router's shape, "path": "family"), launches_assembly the
-assembly phase's scale run's, max_abs_err over every
+assembly phase's scale run's, launches_mesh the mesh phase's 2-shard
+run's, max_abs_err over every
 shape checked.  "kernels" lists the kernels of the path; "off_path" the wide
 K2 variant, which no table of the path takes, and the warp DP kernel,
 which no budget of the path takes.
@@ -503,6 +523,7 @@ def dryrun_phase(big, dev):
 
     t0 = time.perf_counter()
     dryrun_multichip(1, device=dev)
+    dryrun_multichip(2, device=dev)
     torch.cuda.synchronize()
     t_dry = time.perf_counter() - t0
     snp = big.var_type == VT_SINGLE
@@ -532,12 +553,300 @@ def dryrun_phase(big, dev):
             and np.array_equal(punt, c_punt)):
         raise AssertionError("dryrun: call_pairs on the card differs from "
                              "the CPU run (totals, n_used or punt)")
-    log("dryrun: dryrun_multichip(1) passed (%.2f s); call_pairs at the "
-        "scale panel, %d pairs: %s at %.6f (truth), n_used %g, punts %d; "
+    log("dryrun: dryrun_multichip(1) and (2) passed (%.2f s); call_pairs "
+        "at the scale panel, %d pairs: %s at %.6f (truth), n_used %g, "
+        "punts %d; "
         "totals, n_used and punt equal to the CPU run, prob max diff %.3g; "
         "wall card %.2f s, CPU %.2f s"
         % (t_dry, len(r1), truth, prob[top], n_used, int(punt.sum()),
            float(np.abs(prob - c_prob).max()), walls["card"], walls["cpu"]))
+
+
+def mesh_rank(spec):
+    """One rank of the mesh phase, in its own process (`chip_smoke.py
+    --mesh-rank <json>`): joins the group on cuda:0 over spec["backend"]
+    (None: "cpu:gloo,cuda:nccl"), types its half of the scale cell's pairs
+    with type_reads_device_distributed on a one-shard local mesh, then
+    runs distributed_call on its half of the padded single-end codes over
+    a mesh that spans the ranks; prints one MESHRANK JSON line: the
+    results, walls, TRACE's dist.* stages and the launches of each
+    kernel in each call."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from hgtpu_torch.db import load_npz
+    from hgtpu_torch.ops.banded_dp import banded_costs_bits, banded_costs_warp
+    from hgtpu_torch.ops.compat_kernel import and_reduce_slab, and_reduce_wide
+    from hgtpu_torch.ops.placement_kernel import placement_scores
+    from hgtpu_torch.parallel.e2e import ShardedTyper
+    from hgtpu_torch.parallel.multihost import (
+        distributed_call, global_mesh, init_distributed, pad_reads,
+        process_read_shard, type_reads_device_distributed)
+    from hgtpu_torch.parallel.sharded import Mesh
+    from hgtpu_torch.typer import TypingOptions
+    from hgtpu_torch.utils.trace import TRACE
+
+    fns = (("placement_scores", placement_scores),
+           ("and_reduce_slab", and_reduce_slab),
+           ("and_reduce_wide", and_reduce_wide),
+           ("banded_dp_bits", banded_costs_bits),
+           ("banded_dp_warp", banded_costs_warp))
+
+    def launches():
+        out = {k: f.launches for k, f in fns}
+        for _k, f in fns:
+            f.launches = 0
+        return out
+
+    rank, world = spec["rank"], spec["world"]
+    card = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    gene = load_npz(spec["gene"]).genes["A"]
+    with open(spec["reads"]) as f:
+        R1, R2 = [[tuple(r) for r in rs] for rs in json.load(f)]
+    set_up = time.perf_counter() - t0
+    assert init_distributed("localhost:%d" % spec["port"], world, rank,
+                            backend=spec["backend"], device=card) \
+        == (rank, world)
+    backend = str(dist.get_backend())
+    # a collective on the card through the group's CUDA backend
+    probe = torch.full((1,), rank + 1, dtype=torch.int32, device=card)
+    dist.all_reduce(probe)
+    probe = int(probe.item())
+
+    n = len(R1)
+    lo, hi = rank * n // world, (rank + 1) * n // world
+    launches()
+    TRACE.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = type_reads_device_distributed(
+        gene, R1[lo:hi], R2[lo:hi], TypingOptions(simulation=True),
+        global_start=lo, n_global=n, mesh=Mesh([card]))
+    torch.cuda.synchronize()
+    wall_typing = time.perf_counter() - t0
+    stages = {k: v for k, v in TRACE.summary().items()
+              if k.startswith("dist.") or k == "rescue.fold"}
+    typing_launches = launches()
+
+    typer = ShardedTyper(gene, em_iters=300, mesh=global_mesh(card))
+    codes = pad_reads(typer.encode([s for _, s in R1 + R2]), world)
+    start, stop = process_read_shard(codes.shape[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prob, totals, n_used, punt = distributed_call(typer, codes[start:stop])
+    torch.cuda.synchronize()
+    wall_call = time.perf_counter() - t0
+    call_launches = launches()
+    dist.destroy_process_group()
+    print("MESHRANK " + json.dumps(dict(
+        rank=rank, backend=backend, probe=probe, set_up=set_up,
+        typing=[list(res.cmpt.items()), list(res.exon_cmpt.items()),
+                res.prob, res.num_reads, res.num_pairs,
+                sorted(res.novel_vars)],
+        wall_typing=wall_typing, stages=stages,
+        typing_launches=typing_launches,
+        call=[np.asarray(prob).tolist(), np.asarray(totals).tolist(),
+              float(n_used), np.flatnonzero(punt).tolist(), start, stop],
+        wall_call=wall_call, call_launches=call_launches)), flush=True)
+    return 0
+
+
+def run_ranks(world, backend, gene_path, reads_path, work, timeout=420):
+    """Start `world` ranks of mesh_rank on cuda:0 and return their
+    MESHRANK records; every rank is killed when one fails or passes the
+    time limit.  Each rank's output goes to files under `work`."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    procs, files = [], []
+    try:
+        for rank in range(world):
+            spec = dict(rank=rank, world=world, port=port, backend=backend,
+                        gene=gene_path, reads=reads_path)
+            out = open(os.path.join(work, "rank%d-%d.out" % (world, rank)),
+                       "w+")
+            err = open(os.path.join(work, "rank%d-%d.err" % (world, rank)),
+                       "w+")
+            files += [out, err]
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                 json.dumps(spec)], stdout=out, stderr=err, cwd=ROOT))
+        deadline = time.perf_counter() + timeout
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        recs = []
+        for rank, p in enumerate(procs):
+            out, err = files[2 * rank], files[2 * rank + 1]
+            out.seek(0)
+            err.seek(0)
+            text = out.read()
+            if p.returncode != 0:
+                raise AssertionError("mesh: rank %d of %d (backend %s) exited "
+                                     "%d: %s" % (rank, world, backend,
+                                                 p.returncode,
+                                                 err.read()[-3000:]))
+            recs += [json.loads(line[len("MESHRANK "):])
+                     for line in text.splitlines()
+                     if line.startswith("MESHRANK ")]
+        if sorted(r["rank"] for r in recs) != list(range(world)):
+            raise AssertionError("mesh: ranks printed %s"
+                                 % [r["rank"] for r in recs])
+        return recs
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in files:
+            f.close()
+
+
+def mesh_phase(big, b1, b2, big_gpu, prod_res, prod_wall, prod_opts, dev,
+               counts, reset, work):
+    """Many devices on one card, at the scale cell: a mesh of 2 shards on
+    cuda:0 held against the mesh of one (count_classes' mesh-invariant
+    fields; type_reads_device field for field), its launches counted
+    (counts set to 0 just before, read just after); then two ranks on
+    cuda:0 over gloo and a one-rank world over "cpu:gloo,cuda:nccl",
+    each running type_reads_device_distributed and distributed_call on
+    its share, held against this process's runs.  Returns the 2-shard
+    run's launches."""
+    import numpy as np
+    import torch
+    from hgtpu_torch.db import Catalog
+    from hgtpu_torch.db.catalog import save_npz
+    from hgtpu_torch.parallel import production
+    from hgtpu_torch.parallel.e2e import ShardedTyper
+    from hgtpu_torch.parallel.multihost import pad_reads
+    from hgtpu_torch.parallel.sharded import make_mesh
+
+    mesh2 = make_mesh(2, dev)
+    st1 = production._shared_sharded_typer(
+        big, prod_opts, production.default_mesh(dev), 100)
+    st2 = production._shared_sharded_typer(big, prod_opts, mesh2, 100)
+    c1 = st1.encode([s for _, s in b1])
+    c2 = st1.encode([s for _, s in b2])
+    outs, walls = {}, {}
+    for k, st in ((1, st1), (2, st2)):
+        st.count_classes(c1, c2)            # warm: the 2-shard typer's first
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[k] = st.count_classes(c1, c2)
+        torch.cuda.synchronize()
+        walls[k] = time.perf_counter() - t0
+
+    def agg(rows, w):
+        out = {}
+        for r, x in zip(rows, w):
+            out[r.tobytes()] = out.get(r.tobytes(), 0) + int(x)
+        return out
+
+    o1, o2 = outs[1], outs[2]
+    for key in ("pileup", "punt", "excl"):
+        if not np.array_equal(o1[key], o2[key]):
+            raise AssertionError("mesh: count_classes' %s differs between 1 "
+                                 "and 2 shards" % key)
+    if (o1["n_reads"], o1["n_pairs"]) != (o2["n_reads"], o2["n_pairs"]):
+        raise AssertionError("mesh: count_classes' counts differ")
+    for name, (rows, w, tot) in o1["levels"].items():
+        rows2, w2, tot2 = o2["levels"][name]
+        if not np.array_equal(tot, tot2) or agg(rows, w) != agg(rows2, w2):
+            raise AssertionError("mesh: count_classes' %s classes differ "
+                                 "between 1 and 2 shards" % name)
+
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res2 = production.type_reads_device(big, b1, b2, prod_opts,
+                                        aligner=big_gpu, mesh=mesh2)
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    launches = counts()
+    for f in FIELDS:
+        x, y = getattr(res2, f), getattr(prod_res, f)
+        if isinstance(x, dict):
+            x, y = list(x.items()), list(y.items())
+        if x != y:
+            raise AssertionError("mesh: type_reads_device on 2 shards: %s "
+                                 "differs from the one-shard run" % f)
+    log("mesh: 2 shards on %s: count_classes equal to 1 shard's (pileup, "
+        "punt, excl, counts, every level's totals and classes; %d vs %d "
+        "rows), %.3f s vs %.3f s; type_reads_device equal field for field "
+        "to prod-scale's, warm wall %.3f s (1 shard: %.3f s); launches %s"
+        % (dev, sum(len(v[0]) for v in o2["levels"].values()),
+           sum(len(v[0]) for v in o1["levels"].values()), walls[2],
+           walls[1], wall2, prod_wall, launches))
+
+    # ---- ranks: the gene and reads on disk, one process per rank ---- #
+    os.makedirs(work, exist_ok=True)
+    gene_path = os.path.join(work, "scale.npz")
+    reads_path = os.path.join(work, "scale_reads.json")
+    save_npz(Catalog(family="hla", genes={"A": big}), gene_path)
+    with open(reads_path, "w") as f:
+        json.dump([b1, b2], f)
+    seqs = [s for _, s in b1 + b2]
+    want_typing = [[list(x) for x in prod_res.cmpt.items()],
+                   [list(x) for x in prod_res.exon_cmpt.items()],
+                   [list(x) for x in prod_res.prob], prod_res.num_reads,
+                   prod_res.num_pairs]
+    for world, backend in ((2, "gloo"), (1, None)):
+        t0 = time.perf_counter()
+        recs = run_ranks(world, backend, gene_path, reads_path, work)
+        wall = time.perf_counter() - t0
+        # the single-process runs they must equal: prod-scale's typing,
+        # and call over a mesh of `world` shards on this card
+        typer = ShardedTyper(big, em_iters=300, mesh=make_mesh(world, dev))
+        codes = pad_reads(typer.encode(seqs), world)
+        prob, totals, n_used, punt = typer(codes)
+        what = "%d rank(s), backend %s" % (world, recs[0]["backend"])
+        for r in recs:
+            if r["typing"][:5] != want_typing:
+                raise AssertionError("mesh: %s: rank %d's "
+                                     "type_reads_device_distributed differs "
+                                     "from the single-process run"
+                                     % (what, r["rank"]))
+            c_prob, c_tot, c_used, c_punt, start, stop = r["call"]
+            err = float(np.abs(np.asarray(c_prob) - prob).max())
+            # the same top call, up to a tie within the tolerance (the het
+            # pair's two alleles are near 0.5 each)
+            same = dict(
+                top=c_prob[int(np.argmax(prob))] >= max(c_prob) - 2e-6,
+                prob=err <= 1e-6, totals=c_tot == np.asarray(totals).tolist(),
+                n_used=c_used == float(n_used),
+                punt=c_punt == np.flatnonzero(punt[start:stop]).tolist())
+            if not all(same.values()):
+                raise AssertionError("mesh: %s: rank %d's distributed_call "
+                                     "differs from one process's: %s (prob "
+                                     "max diff %g)" % (what, r["rank"], same,
+                                                       err))
+            if r["probe"] != world * (world + 1) // 2:
+                raise AssertionError("mesh: %s: all_reduce on the card gave "
+                                     "%d" % (what, r["probe"]))
+            if r["typing_launches"]["placement_scores"] <= 0 \
+                    or r["call_launches"]["placement_scores"] <= 0:
+                raise AssertionError("mesh: %s: K1 never launched on rank %d"
+                                     % (what, r["rank"]))
+            log("mesh: %s, rank %d: type_reads_device_distributed on pairs "
+                "[%d, %d) equal to the single-process run (%d novel ids), "
+                "wall %.3f s, stages %s, launches %s; distributed_call on "
+                "rows [%d, %d): top %s, prob max diff %.3g, totals, n_used "
+                "and punt equal, wall %.3f s, launches %s; set-up %.1f s"
+                % (what, r["rank"], r["rank"] * len(b1) // world,
+                   (r["rank"] + 1) * len(b1) // world, len(r["typing"][5]),
+                   r["wall_typing"],
+                   {k: (round(v["s"], 4), v["n"])
+                    for k, v in r["stages"].items()},
+                   r["typing_launches"], start, stop,
+                   big.allele_names[int(np.argmax(c_prob))], err,
+                   r["wall_call"], r["call_launches"], r["set_up"]))
+        log("mesh: %s: %.1f s with process start" % (what, wall))
+    return launches
 
 
 FAMILY_GENES = ("A", "B", "C", "DQA1", "DQB1", "DRB1")
@@ -1480,6 +1789,8 @@ def main():
         sys.stderr.write("chip_smoke: hgtpu_torch is not beside this "
                          "script\n")
         return 2
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_rank(json.loads(sys.argv[2]))
     t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
@@ -1587,7 +1898,8 @@ def main():
     # the production place pass's shape: the scale typer's pwm_ext (the
     # PWM plus read_len zero rows), one mate batch as count_classes pads
     # it (6,511 pairs -> 7,168 rows), m = 100 (the wrapper pads to 112)
-    st_big = production._shared_sharded_typer(big, prod_opts, dev, 100)
+    st_big = production._shared_sharded_typer(
+        big, prod_opts, production.default_mesh(dev), 100)
     pwm_p = st_big._tables[0]
     codes_p = st_big._pad(st_big.encode([s for _, s in b1]), True)
     reads_p = torch.from_numpy(codes_p).to(dev)
@@ -1966,7 +2278,8 @@ def main():
             ("prod-toy", toy, toy_ref, toy_truths, n_toy, "fused"),
             ("prod-scale", big, big_ref, truths, n_big, "tiered")):
         res, wall, stages, n_punt = runs[name]
-        st = production._shared_sharded_typer(gene, prod_opts, dev, 100)
+        st = production._shared_sharded_typer(
+            gene, prod_opts, production.default_mesh(dev), 100)
         # the tiered branch runs a place pass of its own; fused does not
         took = "tiered" if "device.place" in stages else "fused"
         if took != branch or (st._fused_H <= 8) != (branch == "fused"):
@@ -1997,6 +2310,13 @@ def main():
 
     # ---- 8. the pure-device programs ---- #
     dryrun_phase(big, dev)
+
+    # ---- 8b. many devices on one card: 2 shards, 2 gloo ranks, a
+    # one-rank NCCL world (the 2-shard run's launches counted) ---- #
+    mesh_launches = mesh_phase(big, b1, b2, big_gpu, runs["prod-scale"][0],
+                               runs["prod-scale"][1], prod_opts, dev, counts,
+                               reset, os.path.join(ROOT, "build",
+                                                   "chip_smoke"))
 
     # ---- 9. one sample over a family: type_family through the panel
     # router (counts set to 0 just before its run, read just after), K1
@@ -2044,6 +2364,7 @@ def main():
         rec["launches"] = (fam_launches if rec.get("path") == "family"
                            else prod_launches)[rec["name"]]
         rec["launches_assembly"] = asm_launches[rec["name"]]
+        rec["launches_mesh"] = mesh_launches[rec["name"]]
     for name in ("placement_scores", "and_reduce_slab", "banded_dp_bits"):
         if host_launches[name] <= 0:
             raise AssertionError("%s never launched on the host-engine path"
@@ -2066,6 +2387,12 @@ def main():
                              "K2 never launched")
     if prod_launches["and_reduce_slab"] <= 0:
         raise AssertionError("K2 never launched on the production path")
+    if mesh_launches["placement_scores"] <= 0 \
+            or (scale_fold and mesh_launches["and_reduce_slab"] <= 0) \
+            or (scale_dp and mesh_launches["banded_dp_bits"] <= 0) \
+            or mesh_launches["banded_dp_warp"]:
+        raise AssertionError("mesh: the 2-shard run's launches %s"
+                             % mesh_launches)
     if fam_proof["router"] != 2 or fam_proof["gene"] <= 0 \
             or fam_launches["placement_scores"] \
             != fam_proof["router"] + fam_proof["gene"]:
@@ -2087,11 +2414,11 @@ def main():
     log("proof: launches host path %s, production path %s (prod-scale %s; "
         "rescue reached the fold: %s; device verify in the rescue: %d "
         "calls), family path %s (K1: the router %d + per-gene placements "
-        "%d), assembly run %s; jax imported: no; hgtpu imported: no; "
-        "native library loaded: yes"
+        "%d), assembly run %s, 2-shard mesh run %s; jax imported: no; "
+        "hgtpu imported: no; native library loaded: yes"
         % (host_launches, prod_launches, scale_launches, scale_fold,
            scale_dp, fam_launches, fam_proof["router"], fam_proof["gene"],
-           asm_launches))
+           asm_launches, mesh_launches))
     log("wall: chip_smoke %.1f s" % (time.perf_counter() - t_start))
 
     order = ("name", "route", "source", "replaces", "launches",

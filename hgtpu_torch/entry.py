@@ -1,5 +1,5 @@
-# Port of __graft_entry__.py: the same two entry points, on one torch
-# device, with the port's own copies of the tiny gene and reads.
+# Port of __graft_entry__.py: the same two entry points, on torch
+# devices, with the port's own copies of the tiny gene and reads.
 """Entry points.
 
 entry(): the single-device forward step of the flagship compute path —
@@ -7,12 +7,12 @@ diagonal placement over the variant-aware backbone PWM (kernel K1 and
 the diagonal top-k), the replacement for HISAT2's graph alignment inner
 loop.  Returns (fn, args) with the args on the default device.
 
-dryrun_multichip(n): the connected end-to-end typing program on the
-device: reads from a known truth allele are placed, spelled, counted
-and rescued through the production path (type_reads_device), then typed
-again by the pure-device EM program (ShardedTyper.call_allele); both
-must call the truth.  The port runs on one device: n > 1 needs the
-multi-device port (ROADMAP item 12).
+dryrun_multichip(n): the connected end-to-end typing program over a
+mesh of n shards (parallel.sharded.make_mesh: n shards on `device`, or
+the visible cards in turn): reads from a known truth allele are placed,
+spelled, counted and rescued through the production path
+(type_reads_device), then typed again by the pure-device EM program
+(ShardedTyper.call_allele); both must call the truth.
 """
 from __future__ import annotations
 
@@ -94,20 +94,18 @@ def entry(device=None):
 
 
 def dryrun_multichip(n_devices: int, device=None) -> None:
-    """Run the PRODUCTION typing path on the device: the pileup-gated
-    class program with the host engine rescuing exactly the punt mask —
-    no read is ever dropped (the reference never drops in-budget reads,
-    typing_core.py:800-1543) — then the pure-device EM program."""
-    if n_devices != 1:
-        raise NotImplementedError(
-            "hgtpu_torch runs on one device; %d devices need the "
-            "multi-device port (ROADMAP item 12)" % n_devices)
+    """Run the PRODUCTION typing path over an n-shard mesh: the
+    pileup-gated class program with the host engine rescuing exactly the
+    punt mask — no read is ever dropped (the reference never drops
+    in-budget reads, typing_core.py:800-1543) — then the pure-device EM
+    program on the same mesh."""
     from .db.catalog import VT_DELETION, VT_INSERTION
     from .parallel.e2e import ShardedTyper
     from .parallel.production import type_reads_device
+    from .parallel.sharded import make_mesh
     from .typer import TypingOptions
 
-    dev = resolve_device(device)
+    mesh = make_mesh(n_devices, device)
     gene = _tiny_gene()
 
     # truth carries BOTH a catalog deletion and an insertion, so the
@@ -126,7 +124,7 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
 
     opts = TypingOptions(simulation=True, allow_discordant=True,
                          device_typing="on")
-    res = type_reads_device(gene, named, None, opts, device=dev)
+    res = type_reads_device(gene, named, None, opts, mesh=mesh)
     name, prob_top = res.prob[0]
     assert name == truth, "called %s, truth %s" % (name, truth)
     assert prob_top > 0.9999, "truth abundance %.6f" % prob_top
@@ -136,8 +134,8 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
         "dropped %d/%d reads" % (len(reads) - res.num_pairs, len(reads))
     assert res.num_reads == len(reads)
 
-    # the pure-device EM program must also run on this device
-    typer = ShardedTyper(gene, dev, read_len=64, em_iters=100)
+    # the pure-device EM program must also run on this mesh
+    typer = ShardedTyper(gene, read_len=64, em_iters=100, mesh=mesh)
     codes = typer.encode(reads)
     dname, dprob, totals, n_used = typer.call_allele(codes)
     assert dname == truth

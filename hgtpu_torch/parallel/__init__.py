@@ -1,7 +1,10 @@
-"""The production typing path on one device (port of hgtpu/parallel).
+"""The production typing path over a mesh of shards (port of
+hgtpu/parallel).
 
+``sharded.Mesh`` is the mesh (shard devices and an optional
+``torch.distributed`` group), with hgtpu's step functions;
 ``e2e.ShardedTyper`` holds one gene's device tables and its place, spell
-and count passes; ``production.type_reads_device`` runs them and rescues
-the punt mask through the host engine.  One device, no mesh: many devices
-come with ``torch.distributed`` (ROADMAP item 12).
+and count passes, run once per shard; ``production.type_reads_device``
+runs them and rescues the punt mask through the host engine;
+``multihost`` joins processes and merges their results losslessly.
 """

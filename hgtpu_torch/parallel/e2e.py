@@ -1,12 +1,17 @@
 # Port of hgtpu/parallel/e2e.py: the tables and the host side of
-# count_classes are copies; the passes run on torch, on one device.
-"""The production typing program of one gene on one device.
+# count_classes are copies; the passes run on torch, shard by shard.
+"""The production typing program of one gene over a mesh of shards.
 
-hgtpu runs it as jitted shard_map programs over a mesh; here it is plain
-torch on one device (``n_devices`` = 1, every psum is the identity, the
-per-shard buffer layouts are kept, so the host side of ``count_classes``
-is a near-verbatim copy).  The passes, each a callable with hgtpu's
-inputs and outputs (tables first, then the reads and the state tuple):
+hgtpu runs it as jitted shard_map programs over a device mesh; here each
+program is plain torch run once per shard of a ``sharded.Mesh``, on that
+shard's device and its contiguous block of the padded reads, and each of
+hgtpu's psums is ``Mesh.psum`` (the shard bodies are generators that
+yield where hgtpu sums; ``Mesh.run`` drives them in lockstep).  A mesh of
+one shard runs each body once, as it is.  The per-shard buffer layouts
+are hgtpu's, so the host side of ``count_classes`` is a near-verbatim
+copy.  The passes, each a callable with hgtpu's inputs and outputs
+(tables first, then the reads and the state tuple; a sharded output is a
+tensor on a one-shard mesh, else a ``sharded.Sharded``):
 
 1. place  — both orientations of every mate scored on kernel K1
             (``ops.placement.correlate_scores``); the argmax diagonal,
@@ -49,6 +54,7 @@ from .. import resolve_device
 from ..ops.placement import backbone_pwm, correlate_scores, encode_reads
 from ..typer.device_count import DeviceCounter
 from ..typer.device_fold import _M32, _mul32, _pow2, _to_i32
+from .sharded import REP, SHARD, Mesh, Replicated
 
 MAX_SNP_ALTS = 3    # catalog alts per backbone position (A/C/G/T minus ref)
 MAX_INDEL_CAND = 4  # catalog indels probed per read (2 anchors each)
@@ -259,7 +265,8 @@ def _row_take(rows, off, j, off_lo, off_hi, init):
 
 
 class ShardedTyper:
-    """One gene's typing programs on one torch device.
+    """One gene's typing programs over a mesh of shards (``mesh``; by
+    default one shard on ``device``).
 
     The production front door is ``count_classes(r1[, r2])``: the
     place/spell pass, the host pileup merge, and the pileup-gated count
@@ -273,8 +280,9 @@ class ShardedTyper:
     returns (prob [A], totals [A], n_used, punt [N]): one place+spell
     pass with K1, the ungated count, and the staged SQUAREM EM on the
     device (``em_iters`` caps each level).  ``call_allele`` names the top
-    allele.  The name is hgtpu's, so that a reader finds the counterpart;
-    there is one device and no shard.
+    allele.  On a mesh whose group spans ranks these programs take each
+    rank's rows and return the replicated result (``count_em_global``);
+    ``count_classes`` runs on a mesh local to the process only.
     """
 
     def __init__(self, gene: GeneRef, device=None, read_len: int = 100,
@@ -282,15 +290,21 @@ class ShardedTyper:
                  min_score_frac: float = 0.9,
                  max_ht_vars: int = 16, family: str = "hla",
                  max_indel_cand: int = MAX_INDEL_CAND,
-                 with_primary: bool = False, class_cap: int = 2048):
+                 with_primary: bool = False, class_cap: int = 2048,
+                 mesh: Mesh = None):
         # class_cap bounds the fetch buffer of unique class rows; the
         # effective cap (count_classes) is budget-adaptive, as hgtpu's
+        if mesh is None:
+            mesh = Mesh([resolve_device(device)])
+        elif device is not None:
+            raise ValueError("pass a device or a mesh, not both")
         self.gene = gene
-        self.device = dev = resolve_device(device)
+        self.mesh = mesh
+        self.device = dev = mesh.devices[0]
         self.read_len = read_len
         self.family = family
         self.max_novel = max_novel
-        self.n_devices = 1
+        self.n_devices = mesh.size
         ipos_np, ilen_np, iins_np, _, _ = _indel_tables(gene)
         max_shift = int(ilen_np.max()) if len(ilen_np) else 0
         # gene-level hypothesis ceiling: the densest WIDE window any read
@@ -433,1179 +447,1267 @@ class ShardedTyper:
                 self._primary_groups = pgroups
         self._with_primary = (with_primary and self._staged
                               and self._primary_mask_np.any())
+        n_shards = mesh.size
 
-        def i32(a):
-            return torch.tensor(a, dtype=torch.int32, device=dev)
+        def programs(dev):
+            """The per-shard bodies of every program, their constants on
+            `dev`; a body that psums is a generator (Mesh.run)."""
+            progs = {}
 
-        n_exons = len(gene.exons)
-        ex_l = i32([e[0] for e in gene.exons] or [0])
-        ex_r = i32([e[1] for e in gene.exons] or [-1])
-        n_pexons = len(gene.primary_exons)
-        px_l = i32([e[0] for e in gene.primary_exons] or [0])
-        px_r = i32([e[1] for e in gene.primary_exons] or [-1])
-        var_isdel_d = torch.from_numpy(np.concatenate(
-            [gene.var_type == VT_DELETION, [False]])).to(dev)
+            def i32(a):
+                return torch.tensor(a, dtype=torch.int32, device=dev)
 
-        # alternative-haplotype end-trim gate: the host's may_trim reach
-        # test as device RMQ tables — a read that MAY be end-trimmed by
-        # identify_ambiguous_diffs punts to the host rescue
-        from ..typer.engine import ensure_alt_gate
-        La, Lt, Ra, Rt = ensure_alt_gate(gene)
+            n_exons = len(gene.exons)
+            ex_l = i32([e[0] for e in gene.exons] or [0])
+            ex_r = i32([e[1] for e in gene.exons] or [-1])
+            n_pexons = len(gene.primary_exons)
+            px_l = i32([e[0] for e in gene.primary_exons] or [0])
+            px_r = i32([e[1] for e in gene.primary_exons] or [-1])
+            var_isdel_d = torch.from_numpy(np.concatenate(
+                [gene.var_type == VT_DELETION, [False]])).to(dev)
 
-        def _pack_rmq(tabs, fill):
-            Kt = len(tabs)
-            N = max(len(tabs[0]), 1)
-            out = np.full((Kt, N), fill, np.int64)
-            for kk, t in enumerate(tabs):
-                out[kk, :len(t)] = t
-            return torch.from_numpy(out.astype(np.int32)).to(dev)
+            # alternative-haplotype end-trim gate: the host's may_trim reach
+            # test as device RMQ tables — a read that MAY be end-trimmed by
+            # identify_ambiguous_diffs punts to the host rescue
+            from ..typer.engine import ensure_alt_gate
+            La, Lt, Ra, Rt = ensure_alt_gate(gene)
 
-        self._gate_n = (len(La), len(Ra))
-        La_d = torch.from_numpy(La.astype(np.int32)).to(dev)
-        Ra_d = torch.from_numpy(Ra.astype(np.int32)).to(dev)
-        Lt_d = _pack_rmq(Lt, (1 << 30)) if len(La) else None
-        Rt_d = _pack_rmq(Rt, -(1 << 30)) if len(Ra) else None
+            def _pack_rmq(tabs, fill):
+                Kt = len(tabs)
+                N = max(len(tabs[0]), 1)
+                out = np.full((Kt, N), fill, np.int64)
+                for kk, t in enumerate(tabs):
+                    out[kk, :len(t)] = t
+                return torch.from_numpy(out.astype(np.int32)).to(dev)
 
-        def may_trim_dev(l, r):
-            """Device twin of GeneTyper.may_trim over winner spans."""
-            out = torch.zeros(l.shape, dtype=torch.bool, device=dev)
+            self._gate_n = (len(La), len(Ra))
+            La_d = torch.from_numpy(La.astype(np.int32)).to(dev)
+            Ra_d = torch.from_numpy(Ra.astype(np.int32)).to(dev)
+            Lt_d = _pack_rmq(Lt, (1 << 30)) if len(La) else None
+            Rt_d = _pack_rmq(Rt, -(1 << 30)) if len(Ra) else None
 
-            def rmq(tab, a_pos, side_val, op, cmp):
-                i0 = _ss(a_pos, l)
-                i1 = _ss(a_pos, r, right=True)
-                ln = i1 - i0
-                kq = _floor_log2(ln.clamp(min=1), tab.shape[0])
-                w = torch.ones_like(kq) << kq
-                N = tab.shape[1]
-                kl = kq.long()
-                q = op(tab[kl, i0.clamp(max=N - 1).long()],
-                       tab[kl, (i1 - w).clamp(0, N - 1).long()])
-                return (ln > 0) & cmp(q, side_val)
+            def may_trim_dev(l, r):
+                """Device twin of GeneTyper.may_trim over winner spans."""
+                out = torch.zeros(l.shape, dtype=torch.bool, device=dev)
 
-            if self._gate_n[0]:
-                out = out | rmq(Lt_d, La_d, l, torch.minimum,
-                                lambda q, v: q <= v)
-            if self._gate_n[1]:
-                out = out | rmq(Rt_d, Ra_d, r, torch.maximum,
-                                lambda q, v: q >= v)
-            return out
+                def rmq(tab, a_pos, side_val, op, cmp):
+                    i0 = _ss(a_pos, l)
+                    i1 = _ss(a_pos, r, right=True)
+                    ln = i1 - i0
+                    kq = _floor_log2(ln.clamp(min=1), tab.shape[0])
+                    w = torch.ones_like(kq) << kq
+                    N = tab.shape[1]
+                    kl = kq.long()
+                    q = op(tab[kl, i0.clamp(max=N - 1).long()],
+                           tab[kl, (i1 - w).clamp(0, N - 1).long()])
+                    return (ln > 0) & cmp(q, side_val)
 
-        # production class levels: full always; exon / primary-exon when
-        # the staged hierarchy applies
-        self._levels = [("full", np.ones(A, bool))]
-        if self._staged:
-            self._levels.append(("exon", self._rep_mask_np))
-        if self._with_primary:
-            self._levels.append(("primary", self._primary_mask_np))
-        NLEV = len(self._levels)
-        include_d = torch.from_numpy(
-            np.stack([m for _, m in self._levels])).to(dev)
+                if self._gate_n[0]:
+                    out = out | rmq(Lt_d, La_d, l, torch.minimum,
+                                    lambda q, v: q <= v)
+                if self._gate_n[1]:
+                    out = out | rmq(Rt_d, Ra_d, r, torch.maximum,
+                                    lambda q, v: q >= v)
+                return out
 
-        # static pair-hypothesis combos over the sorted candidate slots:
-        # each pair (u, v), u < v, is probed with 3 anchor modes
-        PAIR_COMBOS = tuple((u, v)
-                            for u in range(max_indel_cand)
-                            for v in range(u + 1, max_indel_cand))
-        def arange(n, dtype=torch.int32):
-            return torch.arange(n, dtype=dtype, device=dev)
+            # production class levels: full always; exon / primary-exon when
+            # the staged hierarchy applies
+            self._levels = [("full", np.ones(A, bool))]
+            if self._staged:
+                self._levels.append(("exon", self._rep_mask_np))
+            if self._with_primary:
+                self._levels.append(("primary", self._primary_mask_np))
+            NLEV = len(self._levels)
+            include_d = torch.from_numpy(
+                np.stack([m for _, m in self._levels])).to(dev)
 
-        def place_mates(tabs, reads):
-            """Stage 1: K1 placement scores, both orientations.
-            Returns (s0, use_r, uniq_diag, cand_wide) — the argmax
-            diagonal per read, the placement-uniqueness bit the tier-1
-            rescue needs, and the candidate count in the WIDE window
-            [s0 - 2*max_shift, s0 + W + max_shift] that assigns the
-            read's spelling tier."""
-            pwm_ext = tabs[0]
-            ind_pos_t = tabs[4]
-            W = reads.shape[1]
-            s_f = correlate_scores(pwm_ext, reads)
-            s_r = correlate_scores(pwm_ext, _rc(reads))
+            # static pair-hypothesis combos over the sorted candidate slots:
+            # each pair (u, v), u < v, is probed with 3 anchor modes
+            PAIR_COMBOS = tuple((u, v)
+                                for u in range(max_indel_cand)
+                                for v in range(u + 1, max_indel_cand))
+            def arange(n, dtype=torch.int32):
+                return torch.arange(n, dtype=dtype, device=dev)
 
-            # top-2 via max/argmax + masked second max; torch.argmax
-            # returns the first maximum, as jnp.argmax does
-            def top2(s):
-                bst = s.max(1).values
-                arg = torch.argmax(s, 1).to(torch.int32)
-                iota = arange(s.shape[1])[None, :]
-                sec = torch.where(iota == arg[:, None],
-                                  torch.full_like(s, -float("inf")),
-                                  s).max(1).values
-                return bst, arg, sec
+            def place_mates(tabs, reads):
+                """Stage 1: K1 placement scores, both orientations.
+                Returns (s0, use_r, uniq_diag, cand_wide) — the argmax
+                diagonal per read, the placement-uniqueness bit the tier-1
+                rescue needs, and the candidate count in the WIDE window
+                [s0 - 2*max_shift, s0 + W + max_shift] that assigns the
+                read's spelling tier."""
+                pwm_ext = tabs[0]
+                ind_pos_t = tabs[4]
+                W = reads.shape[1]
+                s_f = correlate_scores(pwm_ext, reads)
+                s_r = correlate_scores(pwm_ext, _rc(reads))
 
-            best_f, arg_f, sec_f = top2(s_f)
-            best_r, arg_r, sec_r = top2(s_r)
-            use_r = best_r > best_f
-            s0 = torch.where(use_r, arg_r, arg_f)
-            # unique best placement across diagonals AND orientations
-            best = torch.maximum(best_f, best_r)
-            second = torch.maximum(torch.where(use_r, sec_r, sec_f),
-                                   torch.where(use_r, best_f, best_r))
-            lo = _ss(ind_pos_t[:D], s0 - 2 * max_shift)
-            hi = _ss(ind_pos_t[:D], s0 + W + max_shift, right=True)
-            return s0, use_r, second < best, hi - lo
+                # top-2 via max/argmax + masked second max; torch.argmax
+                # returns the first maximum, as jnp.argmax does
+                def top2(s):
+                    bst = s.max(1).values
+                    arg = torch.argmax(s, 1).to(torch.int32)
+                    iota = arange(s.shape[1])[None, :]
+                    sec = torch.where(iota == arg[:, None],
+                                      torch.full_like(s, -float("inf")),
+                                      s).max(1).values
+                    return bst, arg, sec
 
-        hyp_cols = {}
+                best_f, arg_f, sec_f = top2(s_f)
+                best_r, arg_r, sec_r = top2(s_r)
+                use_r = best_r > best_f
+                s0 = torch.where(use_r, arg_r, arg_f)
+                # unique best placement across diagonals AND orientations
+                best = torch.maximum(best_f, best_r)
+                second = torch.maximum(torch.where(use_r, sec_r, sec_f),
+                                       torch.where(use_r, best_f, best_r))
+                lo = _ss(ind_pos_t[:D], s0 - 2 * max_shift)
+                hi = _ss(ind_pos_t[:D], s0 + W + max_shift, right=True)
+                return s0, use_r, second < best, hi - lo
 
-        def mate_spell(tabs, reads, placed=None, pair_combos=(),
-                       n_single=max_indel_cand):
-            """Stage 2 for one mate batch, PRE-gating: hypothesis
-            scoring, winner/tie per-base planes.
+            hyp_cols = {}
 
-            Every hypothesis claims up to TWO catalog indels (ca, cb)
-            with pos_a < pos_b; singles carry the sentinel row D for cb.
-            Read offset j maps to
+            def mate_spell(tabs, reads, placed=None, pair_combos=(),
+                           n_single=max_indel_cand):
+                """Stage 2 for one mate batch, PRE-gating: hypothesis
+                scoring, winner/tie per-base planes.
 
-                bbpos(j) = s_a + j + (j>=b_a)*dl_a - (j>=b_a+il_a)*il_a
-                                   + (j>=b_b)*dl_b - (j>=b_b+il_b)*il_b
+                Every hypothesis claims up to TWO catalog indels (ca, cb)
+                with pos_a < pos_b; singles carry the sentinel row D for cb.
+                Read offset j maps to
 
-            anchored at s_a = s0 (prefix), s0 - sh_a (middle), or
-            s0 - sh_a - sh_b (suffix); b_a = pos_a - s_a and
-            b_b = pos_b - s_a - sh_a."""
-            (ind_pos, ind_len, ind_ins, ind_var, ins_enc) = tabs[4:9]
-            bb_ext_t = tabs[1]
-            n, W = reads.shape
-            Lbb = bb_ext_t.shape[0]
-            if placed is None:
-                s0, use_r, uniq_diag, _cw = place_mates(tabs, reads)
-            else:
-                s0, use_r, uniq_diag = placed
-            oriented = torch.where(use_r[:, None], _rc(reads), reads)
+                    bbpos(j) = s_a + j + (j>=b_a)*dl_a - (j>=b_a+il_a)*il_a
+                                       + (j>=b_b)*dl_b - (j>=b_b+il_b)*il_b
 
-            # straight-diagonal pre-scan for the perfect-read rule
-            mask_rows_t = tabs[20]
-            mk0 = mask_rows_t[s0.clamp(0, Lbb - 1).long(),
-                              OFF_LO:OFF_LO + W]
-            cu0 = oriented.clamp(max=4).to(torch.uint8)
-            ok0 = ((mk0 >> cu0) & 1) == 1
-            valid0 = (oriented < 4) & (((mk0 >> 4) & 1) == 1)
-            score0 = (ok0 & valid0).sum(1)
-            rl_all = (oriented < 4).sum(1)
-            straight_perfect = ((score0 == rl_all) & (rl_all == W)
-                                & (s0 >= 0) & (s0 + W <= P_bb))
+                anchored at s_a = s0 (prefix), s0 - sh_a (middle), or
+                s0 - sh_a - sh_b (suffix); b_a = pos_a - s_a and
+                b_b = pos_b - s_a - sh_a."""
+                (ind_pos, ind_len, ind_ins, ind_var, ins_enc) = tabs[4:9]
+                bb_ext_t = tabs[1]
+                n, W = reads.shape
+                Lbb = bb_ext_t.shape[0]
+                if placed is None:
+                    s0, use_r, uniq_diag, _cw = place_mates(tabs, reads)
+                else:
+                    s0, use_r, uniq_diag = placed
+                oriented = torch.where(use_r[:, None], _rc(reads), reads)
 
-            # candidates: the max_indel_cand catalog indels at/after
-            # s0 - max_shift
-            c0 = _ss(ind_pos[:D], s0 - max_shift)
-            cand = (c0[:, None] + arange(max_indel_cand)[None, :]
-                    ).clamp(max=D)
-            cand = torch.where(
-                ind_pos[cand.long()] <= s0[:, None] + W + max_shift,
-                cand, torch.full_like(cand, D))                  # [n, C]
-            # hypothesis columns: straight, then (prefix, suffix) per
-            # single candidate, then 3 anchor modes per pair combo.
-            # anchor codes: 0 = s0, 1 = s0 - sh_a, 2 = s0 - sh_a - sh_b
-            sent_col = torch.full((n, 1), D, dtype=torch.int32,
-                                  device=dev)
-            ca_cols = [sent_col]
-            cb_cols = [sent_col]
-            anc_codes = [0]
-            is_pair = [False]
-            for c in range(n_single):
-                ca_cols.append(cand[:, c:c + 1])
-                cb_cols.append(sent_col)
-                anc_codes.append(0)
-                is_pair.append(False)
-            for c in range(n_single):
-                ca_cols.append(cand[:, c:c + 1])
-                cb_cols.append(sent_col)
-                anc_codes.append(2)
-                is_pair.append(False)
-            for (u, v) in pair_combos:
-                for anc in (0, 1, 2):
-                    ca_cols.append(cand[:, u:u + 1])
-                    cb_cols.append(cand[:, v:v + 1])
-                    anc_codes.append(anc)
+                # straight-diagonal pre-scan for the perfect-read rule
+                mask_rows_t = tabs[20]
+                mk0 = mask_rows_t[s0.clamp(0, Lbb - 1).long(),
+                                  OFF_LO:OFF_LO + W]
+                cu0 = oriented.clamp(max=4).to(torch.uint8)
+                ok0 = ((mk0 >> cu0) & 1) == 1
+                valid0 = (oriented < 4) & (((mk0 >> 4) & 1) == 1)
+                score0 = (ok0 & valid0).sum(1)
+                rl_all = (oriented < 4).sum(1)
+                straight_perfect = ((score0 == rl_all) & (rl_all == W)
+                                    & (s0 >= 0) & (s0 + W <= P_bb))
+
+                # candidates: the max_indel_cand catalog indels at/after
+                # s0 - max_shift
+                c0 = _ss(ind_pos[:D], s0 - max_shift)
+                cand = (c0[:, None] + arange(max_indel_cand)[None, :]
+                        ).clamp(max=D)
+                cand = torch.where(
+                    ind_pos[cand.long()] <= s0[:, None] + W + max_shift,
+                    cand, torch.full_like(cand, D))                  # [n, C]
+                # hypothesis columns: straight, then (prefix, suffix) per
+                # single candidate, then 3 anchor modes per pair combo.
+                # anchor codes: 0 = s0, 1 = s0 - sh_a, 2 = s0 - sh_a - sh_b
+                sent_col = torch.full((n, 1), D, dtype=torch.int32,
+                                      device=dev)
+                ca_cols = [sent_col]
+                cb_cols = [sent_col]
+                anc_codes = [0]
+                is_pair = [False]
+                for c in range(n_single):
+                    ca_cols.append(cand[:, c:c + 1])
+                    cb_cols.append(sent_col)
+                    anc_codes.append(0)
+                    is_pair.append(False)
+                for c in range(n_single):
+                    ca_cols.append(cand[:, c:c + 1])
+                    cb_cols.append(sent_col)
+                    anc_codes.append(2)
+                    is_pair.append(False)
+                for (u, v) in pair_combos:
+                    for anc in (0, 1, 2):
+                        ca_cols.append(cand[:, u:u + 1])
+                        cb_cols.append(cand[:, v:v + 1])
+                        anc_codes.append(anc)
+                        is_pair.append(True)
+                if len(ca_cols) == 1:
+                    # keep H >= 2 so the top-2 is well-formed: one dud
+                    # column (invalid, score -1, never ties)
+                    ca_cols.append(sent_col)
+                    cb_cols.append(sent_col)
+                    anc_codes.append(0)
                     is_pair.append(True)
-            if len(ca_cols) == 1:
-                # keep H >= 2 so the top-2 is well-formed: one dud
-                # column (invalid, score -1, never ties)
-                ca_cols.append(sent_col)
-                cb_cols.append(sent_col)
-                anc_codes.append(0)
-                is_pair.append(True)
-            ca = torch.cat(ca_cols, 1)                           # [n, H]
-            cb = torch.cat(cb_cols, 1)
-            # per-column constants, copied to the device once per tier
-            cols_key = (n_single, pair_combos)
-            if cols_key not in hyp_cols:
-                hyp_cols[cols_key] = (
-                    i32(anc_codes)[None, :],
-                    torch.tensor(is_pair, device=dev)[None, :])
-            anc, pair_col = hyp_cols[cols_key]
-            H = ca.shape[1]
-            cal, cbl = ca.long(), cb.long()
+                ca = torch.cat(ca_cols, 1)                           # [n, H]
+                cb = torch.cat(cb_cols, 1)
+                # per-column constants, copied to the device once per tier
+                cols_key = (n_single, pair_combos)
+                if cols_key not in hyp_cols:
+                    hyp_cols[cols_key] = (
+                        i32(anc_codes)[None, :],
+                        torch.tensor(is_pair, device=dev)[None, :])
+                anc, pair_col = hyp_cols[cols_key]
+                H = ca.shape[1]
+                cal, cbl = ca.long(), cb.long()
 
-            zero = torch.zeros((), dtype=torch.int32, device=dev)
-            dl_a = torch.where(ind_ins[cal] == 0, ind_len[cal], zero)
-            il_a = torch.where(ind_ins[cal] == 1, ind_len[cal], zero)
-            dl_b = torch.where(ind_ins[cbl] == 0, ind_len[cbl], zero)
-            il_b = torch.where(ind_ins[cbl] == 1, ind_len[cbl], zero)
-            sh_a = dl_a - il_a
-            sh_b = dl_b - il_b
-            s_a = (s0[:, None]
-                   - torch.where(anc >= 1, sh_a, zero)
-                   - torch.where(anc == 2, sh_b, zero))          # [n, H]
-            p_a = ind_pos[cal]
-            p_b = ind_pos[cbl]
-            b_a = p_a - s_a
-            b_b = p_b - s_a - sh_a
+                zero = torch.zeros((), dtype=torch.int32, device=dev)
+                dl_a = torch.where(ind_ins[cal] == 0, ind_len[cal], zero)
+                il_a = torch.where(ind_ins[cal] == 1, ind_len[cal], zero)
+                dl_b = torch.where(ind_ins[cbl] == 0, ind_len[cbl], zero)
+                il_b = torch.where(ind_ins[cbl] == 1, ind_len[cbl], zero)
+                sh_a = dl_a - il_a
+                sh_b = dl_b - il_b
+                s_a = (s0[:, None]
+                       - torch.where(anc >= 1, sh_a, zero)
+                       - torch.where(anc == 2, sh_b, zero))          # [n, H]
+                p_a = ind_pos[cal]
+                p_b = ind_pos[cbl]
+                b_a = p_a - s_a
+                b_b = p_b - s_a - sh_a
 
-            jj = arange(W)[None, None, :]
-            ba3, bb3 = b_a[..., None], b_b[..., None]
-            ila3, ilb3 = il_a[..., None], il_b[..., None]
-            dla3, dlb3 = dl_a[..., None], dl_b[..., None]
-            after_a = jj >= ba3
-            after_ai = jj >= ba3 + ila3
-            after_b = jj >= bb3
-            after_bi = jj >= bb3 + ilb3
-            in_ins_a = (ila3 > 0) & after_a & ~after_ai
-            in_ins_b = (ilb3 > 0) & after_b & ~after_bi
-            in_ins = in_ins_a | in_ins_b
-            # mask value at s_a + j + off(j): one row fetch per
-            # hypothesis + one gather along it.  bit c = base matches
-            # backbone-or-catalog-SNP, bit 4 = in-backbone
-            off = (torch.where(after_a, dla3, zero)
-                   - torch.where(after_ai, ila3, zero)
-                   + torch.where(after_b, dlb3, zero)
-                   - torch.where(after_bi, ilb3, zero))         # [n, H, W]
-            mrow = mask_rows_t[s_a.clamp(0, Lbb - 1).long()]  # [n, H, Wrow]
-            mk = _row_take(mrow, off, jj, OFF_LO, OFF_HI, 0)
-            c = oriented[:, None, :]
-            cu = c.clamp(max=4).to(torch.uint8)
-            ok_bb = ((mk >> cu) & 1) == 1
-            exp_valid = ((mk >> 4) & 1) == 1
-            # inserted bases against each candidate's spelled insertion:
-            # read offset j inside the insertion is its base j - b
-            t_a = (jj - ba3).clamp(0, MAX_INS_LEN - 1).long()
-            t_b = (jj - bb3).clamp(0, MAX_INS_LEN - 1).long()
-            ok_ins = ((in_ins_a & (c == torch.gather(ins_enc[cal], 2, t_a)))
-                      | (in_ins_b
-                         & (c == torch.gather(ins_enc[cbl], 2, t_b))))
-            valid = (c < 4) & (exp_valid | in_ins)
-            okall = torch.where(in_ins, ok_ins, ok_bb) & valid
-            score = okall.sum(2).to(torch.float32)              # [n, H]
-            n_novel = (valid & ~okall).sum(2, dtype=torch.int32)
-            n_valid = valid.sum(2, dtype=torch.int32)
+                jj = arange(W)[None, None, :]
+                ba3, bb3 = b_a[..., None], b_b[..., None]
+                ila3, ilb3 = il_a[..., None], il_b[..., None]
+                dla3, dlb3 = dl_a[..., None], dl_b[..., None]
+                after_a = jj >= ba3
+                after_ai = jj >= ba3 + ila3
+                after_b = jj >= bb3
+                after_bi = jj >= bb3 + ilb3
+                in_ins_a = (ila3 > 0) & after_a & ~after_ai
+                in_ins_b = (ilb3 > 0) & after_b & ~after_bi
+                in_ins = in_ins_a | in_ins_b
+                # mask value at s_a + j + off(j): one row fetch per
+                # hypothesis + one gather along it.  bit c = base matches
+                # backbone-or-catalog-SNP, bit 4 = in-backbone
+                off = (torch.where(after_a, dla3, zero)
+                       - torch.where(after_ai, ila3, zero)
+                       + torch.where(after_b, dlb3, zero)
+                       - torch.where(after_bi, ilb3, zero))         # [n, H, W]
+                # [n, H, Wrow]
+                mrow = mask_rows_t[s_a.clamp(0, Lbb - 1).long()]
+                mk = _row_take(mrow, off, jj, OFF_LO, OFF_HI, 0)
+                c = oriented[:, None, :]
+                cu = c.clamp(max=4).to(torch.uint8)
+                ok_bb = ((mk >> cu) & 1) == 1
+                exp_valid = ((mk >> 4) & 1) == 1
+                # inserted bases against each candidate's spelled insertion:
+                # read offset j inside the insertion is its base j - b
+                t_a = (jj - ba3).clamp(0, MAX_INS_LEN - 1).long()
+                t_b = (jj - bb3).clamp(0, MAX_INS_LEN - 1).long()
+                ok_ins = ((in_ins_a
+                           & (c == torch.gather(ins_enc[cal], 2, t_a)))
+                          | (in_ins_b
+                             & (c == torch.gather(ins_enc[cbl], 2, t_b))))
+                valid = (c < 4) & (exp_valid | in_ins)
+                okall = torch.where(in_ins, ok_ins, ok_bb) & valid
+                score = okall.sum(2).to(torch.float32)              # [n, H]
+                n_novel = (valid & ~okall).sum(2, dtype=torch.int32)
+                n_valid = valid.sum(2, dtype=torch.int32)
 
-            # hypothesis validity: real candidate(s), in-backbone start,
-            # every break strictly inside the read; a pair column whose
-            # cb degenerated to the sentinel is INVALID
-            rl = (oriented < 4).sum(1, dtype=torch.int32)[:, None]
-            real_a = ca < D
-            real_b = cb < D
-            ok_a = ((s_a >= 0) & (b_a >= 1) & (b_a + il_a <= rl - 1)
-                    & (b_a <= rl - 1) & ((dl_a > 0) | (il_a > 0)))
-            ok_b = ((b_b >= b_a + il_a) & (b_b + il_b <= rl - 1)
-                    & (b_b <= rl - 1) & ((dl_b > 0) | (il_b > 0)))
-            ok_h = (real_a & ok_a
-                    & torch.where(pair_col, real_b & ok_b, ~real_b))
-            straight = torch.zeros((n, H), dtype=torch.bool, device=dev)
-            straight[:, 0] = True
-            score = torch.where(straight | ok_h, score,
-                                torch.full_like(score, -1.0))
+                # hypothesis validity: real candidate(s), in-backbone start,
+                # every break strictly inside the read; a pair column whose
+                # cb degenerated to the sentinel is INVALID
+                rl = (oriented < 4).sum(1, dtype=torch.int32)[:, None]
+                real_a = ca < D
+                real_b = cb < D
+                ok_a = ((s_a >= 0) & (b_a >= 1) & (b_a + il_a <= rl - 1)
+                        & (b_a <= rl - 1) & ((dl_a > 0) | (il_a > 0)))
+                ok_b = ((b_b >= b_a + il_a) & (b_b + il_b <= rl - 1)
+                        & (b_b <= rl - 1) & ((dl_b > 0) | (il_b > 0)))
+                ok_h = (real_a & ok_a
+                        & torch.where(pair_col, real_b & ok_b, ~real_b))
+                straight = torch.zeros((n, H), dtype=torch.bool, device=dev)
+                straight[:, 0] = True
+                score = torch.where(straight | ok_h, score,
+                                    torch.full_like(score, -1.0))
 
-            # top-2 hypotheses: the winner spells the read; an EQUAL-cost
-            # runner-up is an alternative spelling whose class unions
-            # in.  Ties break toward the straight diagonal (column 0),
-            # then single-indel spellings before pairs
-            top_v, top_i = _top2(score)
-            tie2 = (top_v[:, 1] == top_v[:, 0]) & (top_v[:, 1] >= 0.0)
+                # top-2 hypotheses: the winner spells the read; an EQUAL-cost
+                # runner-up is an alternative spelling whose class unions
+                # in.  Ties break toward the straight diagonal (column 0),
+                # then single-indel spellings before pairs
+                top_v, top_i = _top2(score)
+                tie2 = (top_v[:, 1] == top_v[:, 0]) & (top_v[:, 1] >= 0.0)
 
-            def planes_of(w):
-                """Per-base [n, W] planes of hypothesis column w [n],
-                recomputed from the hypothesis scalars, with row lookups
-                for the backbone base and the packed SNP ids."""
-                s_w = _take(s_a, w)
-                ba_w = _take(b_a, w)
-                bb_w = _take(b_b, w)
-                dla_w = _take(dl_a, w)
-                ila_w = _take(il_a, w)
-                dlb_w = _take(dl_b, w)
-                ilb_w = _take(il_b, w)
-                pa_w = _take(p_a, w)
-                pb_w = _take(p_b, w)
-                ca_w = _take(ca, w)
-                cb_w = _take(cb, w)
-                j = arange(W)[None, :]
-                aft_a = j >= ba_w[:, None]
-                aft_ai = j >= (ba_w + ila_w)[:, None]
-                aft_b = j >= bb_w[:, None]
-                aft_bi = j >= (bb_w + ilb_w)[:, None]
-                ins_a_w = (ila_w[:, None] > 0) & aft_a & ~aft_ai
-                ins_b_w = (ilb_w[:, None] > 0) & aft_b & ~aft_bi
-                in_ins_w = ins_a_w | ins_b_w
-                off_w = (torch.where(aft_a, dla_w[:, None], zero)
-                         - torch.where(aft_ai, ila_w[:, None], zero)
-                         + torch.where(aft_b, dlb_w[:, None], zero)
-                         - torch.where(aft_bi, ilb_w[:, None], zero))
-                bbpos_w = s_w[:, None] + j + off_w
-                gp_w = bbpos_w.clamp(0, Lbb - 1)
-                base = s_w.clamp(0, Lbb - 1).long()
-                bb_w_base = _row_take(tabs[21][base], off_w, j, OFF_LO,
-                                      OFF_HI, 4)
-                a01 = _row_take(tabs[22][base], off_w, j, OFF_LO, OFF_HI,
-                                sent_pack_i32)
-                a23 = _row_take(tabs[23][base], off_w, j, OFF_LO, OFF_HI,
-                                sent_pack_i32)
-                cc = oriented
-                valid_w = (cc < 4) & ((bb_w_base < 4) | in_ins_w)
-                match_w = valid_w & ~in_ins_w & (cc == bb_w_base)
-                mism_w = valid_w & ~match_w & ~in_ins_w
-                avv = torch.where(cc < 2, a01, a23)
-                # the low or high u16 of the word (mask after the
-                # arithmetic shift)
-                var16 = (avv >> (16 * (cc & 1)).to(torch.int32)) & 0xFFFF
-                var_w = torch.where(mism_w, var16,
-                                    torch.full_like(var16, sentinel))
-                span = torch.where(
-                    ins_a_w, pa_w[:, None],
-                    torch.where(ins_b_w, pb_w[:, None], bbpos_w))
-                l = torch.where(valid_w, span,
-                                torch.full_like(span, 1 << 30)).min(1).values
-                r = torch.where(valid_w, span,
-                                torch.full_like(span, -1)).max(1).values
+                def planes_of(w):
+                    """Per-base [n, W] planes of hypothesis column w [n],
+                    recomputed from the hypothesis scalars, with row lookups
+                    for the backbone base and the packed SNP ids."""
+                    s_w = _take(s_a, w)
+                    ba_w = _take(b_a, w)
+                    bb_w = _take(b_b, w)
+                    dla_w = _take(dl_a, w)
+                    ila_w = _take(il_a, w)
+                    dlb_w = _take(dl_b, w)
+                    ilb_w = _take(il_b, w)
+                    pa_w = _take(p_a, w)
+                    pb_w = _take(p_b, w)
+                    ca_w = _take(ca, w)
+                    cb_w = _take(cb, w)
+                    j = arange(W)[None, :]
+                    aft_a = j >= ba_w[:, None]
+                    aft_ai = j >= (ba_w + ila_w)[:, None]
+                    aft_b = j >= bb_w[:, None]
+                    aft_bi = j >= (bb_w + ilb_w)[:, None]
+                    ins_a_w = (ila_w[:, None] > 0) & aft_a & ~aft_ai
+                    ins_b_w = (ilb_w[:, None] > 0) & aft_b & ~aft_bi
+                    in_ins_w = ins_a_w | ins_b_w
+                    off_w = (torch.where(aft_a, dla_w[:, None], zero)
+                             - torch.where(aft_ai, ila_w[:, None], zero)
+                             + torch.where(aft_b, dlb_w[:, None], zero)
+                             - torch.where(aft_bi, ilb_w[:, None], zero))
+                    bbpos_w = s_w[:, None] + j + off_w
+                    gp_w = bbpos_w.clamp(0, Lbb - 1)
+                    base = s_w.clamp(0, Lbb - 1).long()
+                    bb_w_base = _row_take(tabs[21][base], off_w, j, OFF_LO,
+                                          OFF_HI, 4)
+                    a01 = _row_take(tabs[22][base], off_w, j, OFF_LO, OFF_HI,
+                                    sent_pack_i32)
+                    a23 = _row_take(tabs[23][base], off_w, j, OFF_LO, OFF_HI,
+                                    sent_pack_i32)
+                    cc = oriented
+                    valid_w = (cc < 4) & ((bb_w_base < 4) | in_ins_w)
+                    match_w = valid_w & ~in_ins_w & (cc == bb_w_base)
+                    mism_w = valid_w & ~match_w & ~in_ins_w
+                    avv = torch.where(cc < 2, a01, a23)
+                    # the low or high u16 of the word (mask after the
+                    # arithmetic shift)
+                    var16 = (avv >> (16 * (cc & 1)).to(torch.int32)) & 0xFFFF
+                    var_w = torch.where(mism_w, var16,
+                                        torch.full_like(var16, sentinel))
+                    span = torch.where(
+                        ins_a_w, pa_w[:, None],
+                        torch.where(ins_b_w, pb_w[:, None], bbpos_w))
+                    l = torch.where(valid_w, span,
+                                    torch.full_like(span, 1 << 30)
+                                    ).min(1).values
+                    r = torch.where(valid_w, span,
+                                    torch.full_like(span, -1)).max(1).values
+                    return dict(
+                        gp=gp_w, in_ins=in_ins_w, valid=valid_w,
+                        var=var_w, match=match_w,
+                        l=l, r=r, sa=s_w,
+                        iva=ind_var[ca_w.long()], ivb=ind_var[cb_w.long()],
+                        pa=pa_w, pb=pb_w, dla=dla_w, dlb=dlb_w)
+
+                win = top_i[:, 0]
                 return dict(
-                    gp=gp_w, in_ins=in_ins_w, valid=valid_w,
-                    var=var_w, match=match_w,
-                    l=l, r=r, sa=s_w,
-                    iva=ind_var[ca_w.long()], ivb=ind_var[cb_w.long()],
-                    pa=pa_w, pb=pb_w, dla=dla_w, dlb=dlb_w)
+                    oriented=oriented, use_r=use_r, cand=cand, tie2=tie2,
+                    uniq_diag=uniq_diag, straight_perfect=straight_perfect,
+                    score_w=_take(score, win), n_novel_w=_take(n_novel, win),
+                    n_valid_w=_take(n_valid, win),
+                    W=planes_of(win), T=planes_of(top_i[:, 1]))
 
-            win = top_i[:, 0]
-            return dict(
-                oriented=oriented, use_r=use_r, cand=cand, tie2=tie2,
-                uniq_diag=uniq_diag, straight_perfect=straight_perfect,
-                score_w=_take(score, win), n_novel_w=_take(n_novel, win),
-                n_valid_w=_take(n_valid, win),
-                W=planes_of(win), T=planes_of(top_i[:, 1]))
+            def pile_contrib(sp, include):
+                """Device mpileup contribution of one mate batch's winner
+                spellings: aligned bases into the A/C/G/T columns, the
+                claimed catalog deletions' spans into the D column.
+                `include` [n] bool: the pair-concordance + placement-sanity
+                gate.  Returns a flat [P_bb * 6] int32 count vector
+                (integer scatter-adds: exact in any order)."""
+                h = sp["W"]
+                gp, c = h["gp"], sp["oriented"]
+                pos_ok = (h["valid"] & ~h["in_ins"]
+                          & (gp < P_bb) & include[:, None])
+                idx = gp.clamp(0, P_bb - 1) * 6 + c.clamp(0, 3)
+                pile = torch.zeros(P_bb * 6, dtype=torch.int32, device=dev)
+                pile.index_add_(0, idx.reshape(-1).long(),
+                                pos_ok.reshape(-1).to(torch.int32))
+                if del_cap > 0:
+                    k = arange(del_cap)
+                    for pv, dl in ((h["pa"], h["dla"]), (h["pb"], h["dlb"])):
+                        claims = (dl > 0) & include
+                        didx = pv.clamp(0, P_bb - 1)[:, None] + k[None, :]
+                        dmask = (claims[:, None] & (k[None, :] < dl[:, None])
+                                 & (didx < P_bb))
+                        pile.index_add_(
+                            0, (didx.clamp(0, P_bb - 1).reshape(-1) * 6
+                                + 5).long(),
+                            dmask.reshape(-1).to(torch.int32))
+                return pile
 
-        def pile_contrib(sp, include):
-            """Device mpileup contribution of one mate batch's winner
-            spellings: aligned bases into the A/C/G/T columns, the
-            claimed catalog deletions' spans into the D column.
-            `include` [n] bool: the pair-concordance + placement-sanity
-            gate.  Returns a flat [P_bb * 6] int32 count vector
-            (integer scatter-adds: exact in any order)."""
-            h = sp["W"]
-            gp, c = h["gp"], sp["oriented"]
-            pos_ok = (h["valid"] & ~h["in_ins"]
-                      & (gp < P_bb) & include[:, None])
-            idx = gp.clamp(0, P_bb - 1) * 6 + c.clamp(0, 3)
-            pile = torch.zeros(P_bb * 6, dtype=torch.int32, device=dev)
-            pile.index_add_(0, idx.reshape(-1).long(),
-                            pos_ok.reshape(-1).to(torch.int32))
-            if del_cap > 0:
-                k = arange(del_cap)
-                for pv, dl in ((h["pa"], h["dla"]), (h["pb"], h["dlb"])):
-                    claims = (dl > 0) & include
-                    didx = pv.clamp(0, P_bb - 1)[:, None] + k[None, :]
-                    dmask = (claims[:, None] & (k[None, :] < dl[:, None])
-                             & (didx < P_bb))
-                    pile.index_add_(
-                        0, (didx.clamp(0, P_bb - 1).reshape(-1) * 6
-                            + 5).long(),
-                        dmask.reshape(-1).to(torch.int32))
-            return pile
+            def rep_of(tabs, pile_flat):
+                """Per-position gate words from the final pileup
+                (Mpileup.finalize; ref thresholds typing_common.py:1124-1134):
+                  bits 0-7  rep_pack (bit b = base b is representative)
+                  bit 8     single (exactly one representative base)
+                  bit 9     the single rep base equals the backbone base
+                  bits 12+  catalog SNP id of the single rep base
+                            (sentinel = n_vars)
+                plus their sliding-window rows [P_bb, Wrow]."""
+                bb_ext_t = tabs[1]
+                av_tbl = tabs[19]
+                pile = pile_flat.reshape(P_bb, 6)
+                total = pile.sum(1)
+                acgt = pile[:, :4]
+                keep = ((total >= 20)[:, None]
+                        & ((acgt * 5 >= total[:, None]) | (acgt >= 7)))
+                rep_pack = (keep.to(torch.int32) << arange(4)[None, :]).sum(
+                    1, dtype=torch.int32)
+                single = keep.sum(1) == 1
+                b = torch.argmax(keep.to(torch.int32), 1)       # first True
+                bbv = bb_ext_t[:P_bb].to(torch.int64)
+                corr = torch.where(
+                    single, av_tbl[arange(P_bb, torch.int64), b.clamp(0, 3)],
+                    torch.full((P_bb,), sentinel, dtype=torch.int32,
+                               device=dev))
+                gate_tbl = (rep_pack
+                            | (single.to(torch.int32) << 8)
+                            | ((single & (b == bbv)).to(torch.int32) << 9)
+                            | (corr << 12))
+                # zero pad rows -> rp == 0 -> never flagged out of range
+                gpad = torch.cat([
+                    torch.zeros(OFF_LO, dtype=torch.int32, device=dev),
+                    gate_tbl,
+                    torch.zeros(Wrow, dtype=torch.int32, device=dev)])
+                gate_rows = gpad.unfold(0, Wrow, 1)[:P_bb]
+                return rep_pack, pile, gate_rows
 
-        def rep_of(tabs, pile_flat):
-            """Per-position gate words from the final pileup
-            (Mpileup.finalize; ref thresholds typing_common.py:1124-1134):
-              bits 0-7  rep_pack (bit b = base b is representative)
-              bit 8     single (exactly one representative base)
-              bit 9     the single rep base equals the backbone base
-              bits 12+  catalog SNP id of the single rep base
-                        (sentinel = n_vars)
-            plus their sliding-window rows [P_bb, Wrow]."""
-            bb_ext_t = tabs[1]
-            av_tbl = tabs[19]
-            pile = pile_flat.reshape(P_bb, 6)
-            total = pile.sum(1)
-            acgt = pile[:, :4]
-            keep = ((total >= 20)[:, None]
-                    & ((acgt * 5 >= total[:, None]) | (acgt >= 7)))
-            rep_pack = (keep.to(torch.int32) << arange(4)[None, :]).sum(
-                1, dtype=torch.int32)
-            single = keep.sum(1) == 1
-            b = torch.argmax(keep.to(torch.int32), 1)       # first True
-            bbv = bb_ext_t[:P_bb].to(torch.int64)
-            corr = torch.where(
-                single, av_tbl[arange(P_bb, torch.int64), b.clamp(0, 3)],
-                torch.full((P_bb,), sentinel, dtype=torch.int32,
-                           device=dev))
-            gate_tbl = (rep_pack
-                        | (single.to(torch.int32) << 8)
-                        | ((single & (b == bbv)).to(torch.int32) << 9)
-                        | (corr << 12))
-            # zero pad rows -> rp == 0 -> never flagged out of range
-            gpad = torch.cat([
-                torch.zeros(OFF_LO, dtype=torch.int32, device=dev),
-                gate_tbl,
-                torch.zeros(Wrow, dtype=torch.int32, device=dev)])
-            gate_rows = gpad.unfold(0, Wrow, 1)[:P_bb]
-            return rep_pack, pile, gate_rows
+            def gate_hyp(tabs, sp, h, rep):
+                """Pileup re-gating of one hypothesis's per-base
+                classification — the device twin of error_correct
+                (typing_core.py:119-243).  Returns (gated var plane [n, W],
+                corrections counted [n], supported-novel count [n])."""
+                _rp, _pile, gate_rows = rep
+                gp, c = h["gp"], sp["oriented"]
+                W_g = gp.shape[1]
+                pos_ok = h["valid"] & ~h["in_ins"]
+                in_bb = gp < P_bb
+                # off(j) recovered from the stored absolute positions;
+                # offsets outside the sweep (clipped positions past the
+                # backbone) resolve to tv == 0 -> never flagged
+                jg = arange(W_g)[None, :]
+                off_w = gp - h["sa"][:, None] - jg
+                grow = gate_rows[h["sa"].clamp(0, P_bb - 1).long()]
+                tv = _row_take(grow, off_w, jg, OFF_LO, OFF_HI, 0)
+                rp = tv & 0xFF
+                cu = c.clamp(0, 3).to(torch.int32)
+                sup = ((rp >> cu) & 1) == 1
+                ra = (rp != 0) & in_bb
+                flagged = pos_ok & ra & ~sup
+                single = ((tv >> 8) & 1) == 1
+                single_is_bb = ((tv >> 9) & 1) == 1
+                # correction target: the single representative base — to the
+                # backbone (neutral: av sentinel), a catalog alt (that
+                # variant), or N / multi-rep (neutral unknown)
+                sent = torch.full_like(tv, sentinel)
+                corr_var = torch.where(flagged & single, tv >> 12, sent)
+                var_new = torch.where(flagged, corr_var, h["var"])
+                # reference num_correction bookkeeping: every flagged base in
+                # a match run counts; a flagged mismatch counts only when
+                # corrected back to the backbone base
+                corr_counted = flagged & (
+                    h["match"] | (single & single_is_bb))
+                known_new = var_new < sentinel
+                novel_new = pos_ok & ~h["match"] & ~known_new & ~flagged
+                return (var_new,
+                        corr_counted.sum(1, dtype=torch.int32),
+                        novel_new.sum(1, dtype=torch.int32))
 
-        def gate_hyp(tabs, sp, h, rep):
-            """Pileup re-gating of one hypothesis's per-base
-            classification — the device twin of error_correct
-            (typing_core.py:119-243).  Returns (gated var plane [n, W],
-            corrections counted [n], supported-novel count [n])."""
-            _rp, _pile, gate_rows = rep
-            gp, c = h["gp"], sp["oriented"]
-            W_g = gp.shape[1]
-            pos_ok = h["valid"] & ~h["in_ins"]
-            in_bb = gp < P_bb
-            # off(j) recovered from the stored absolute positions;
-            # offsets outside the sweep (clipped positions past the
-            # backbone) resolve to tv == 0 -> never flagged
-            jg = arange(W_g)[None, :]
-            off_w = gp - h["sa"][:, None] - jg
-            grow = gate_rows[h["sa"].clamp(0, P_bb - 1).long()]
-            tv = _row_take(grow, off_w, jg, OFF_LO, OFF_HI, 0)
-            rp = tv & 0xFF
-            cu = c.clamp(0, 3).to(torch.int32)
-            sup = ((rp >> cu) & 1) == 1
-            ra = (rp != 0) & in_bb
-            flagged = pos_ok & ra & ~sup
-            single = ((tv >> 8) & 1) == 1
-            single_is_bb = ((tv >> 9) & 1) == 1
-            # correction target: the single representative base — to the
-            # backbone (neutral: av sentinel), a catalog alt (that
-            # variant), or N / multi-rep (neutral unknown)
-            sent = torch.full_like(tv, sentinel)
-            corr_var = torch.where(flagged & single, tv >> 12, sent)
-            var_new = torch.where(flagged, corr_var, h["var"])
-            # reference num_correction bookkeeping: every flagged base in
-            # a match run counts; a flagged mismatch counts only when
-            # corrected back to the backbone base
-            corr_counted = flagged & (
-                h["match"] | (single & single_is_bb))
-            known_new = var_new < sentinel
-            novel_new = pos_ok & ~h["match"] & ~known_new & ~flagged
-            return (var_new,
-                    corr_counted.sum(1, dtype=torch.int32),
-                    novel_new.sum(1, dtype=torch.int32))
+            def clip_ht_w(var_pos_d, var_right_d, l, r, vars_, k,
+                          win_l, win_r, n_win):
+                """Intersect an ht with its k-th overlapping window from
+                (win_l, win_r) (get_exon_haplotypes, typer/exons.py).
+                Non-overlapping windows degenerate to the all-compatible
+                uniform row, which leaves the argmax class unchanged."""
+                first = _ss(win_r, l)
+                wi = (first + k).clamp(max=max(n_win - 1, 0)).long()
+                el, er = win_l[wi], win_r[wi]
+                ok = (first + k < n_win) & (el <= r) & (er >= l)
+                big = torch.full_like(l, 1 << 30)
+                neg = torch.full_like(l, -1)
+                lc = torch.where(ok, torch.maximum(l, el), big)
+                rc = torch.where(ok, torch.minimum(r, er), neg)
+                vl = vars_.long()
+                vp = var_pos_d[vl]
+                vr = var_right_d[vl]
+                isd = var_isdel_d[vl]
+                # host deletion-edge rule: a deletion straddling the clipped
+                # left edge advances the edge to one past the deletion;
+                # straddling the right edge pulls it to one before
+                stl = isd & (vp - 1 < lc[:, None]) & (vr >= lc[:, None])
+                lc = torch.maximum(lc, torch.where(
+                    stl, vr + 1,
+                    torch.full_like(vr, -(1 << 30))).max(1).values)
+                stri = isd & (vr + 1 > rc[:, None]) & (vp - 1 <= rc[:, None])
+                rc = torch.minimum(rc, torch.where(
+                    stri, vp - 1, torch.full_like(vp, 1 << 30)).min(1).values)
+                ok = ok & (lc <= rc)
+                lc = torch.where(ok, lc, big)
+                rc = torch.where(ok, rc, neg)
+                keep = torch.where(
+                    isd,
+                    (vp - 1 >= lc[:, None]) & (vr + 1 <= rc[:, None]),
+                    (vp >= lc[:, None]) & (vp <= rc[:, None]))
+                vc = torch.where(ok[:, None] & keep, vars_,
+                                 torch.full_like(vars_, sentinel))
+                return lc, rc, vc
 
-        def clip_ht_w(var_pos_d, var_right_d, l, r, vars_, k,
-                      win_l, win_r, n_win):
-            """Intersect an ht with its k-th overlapping window from
-            (win_l, win_r) (get_exon_haplotypes, typer/exons.py).
-            Non-overlapping windows degenerate to the all-compatible
-            uniform row, which leaves the argmax class unchanged."""
-            first = _ss(win_r, l)
-            wi = (first + k).clamp(max=max(n_win - 1, 0)).long()
-            el, er = win_l[wi], win_r[wi]
-            ok = (first + k < n_win) & (el <= r) & (er >= l)
-            big = torch.full_like(l, 1 << 30)
-            neg = torch.full_like(l, -1)
-            lc = torch.where(ok, torch.maximum(l, el), big)
-            rc = torch.where(ok, torch.minimum(r, er), neg)
-            vl = vars_.long()
-            vp = var_pos_d[vl]
-            vr = var_right_d[vl]
-            isd = var_isdel_d[vl]
-            # host deletion-edge rule: a deletion straddling the clipped
-            # left edge advances the edge to one past the deletion;
-            # straddling the right edge pulls it to one before
-            stl = isd & (vp - 1 < lc[:, None]) & (vr >= lc[:, None])
-            lc = torch.maximum(lc, torch.where(
-                stl, vr + 1, torch.full_like(vr, -(1 << 30))).max(1).values)
-            stri = isd & (vr + 1 > rc[:, None]) & (vp - 1 <= rc[:, None])
-            rc = torch.minimum(rc, torch.where(
-                stri, vp - 1, torch.full_like(vp, 1 << 30)).min(1).values)
-            ok = ok & (lc <= rc)
-            lc = torch.where(ok, lc, big)
-            rc = torch.where(ok, rc, neg)
-            keep = torch.where(
-                isd,
-                (vp - 1 >= lc[:, None]) & (vr + 1 <= rc[:, None]),
-                (vp >= lc[:, None]) & (vp <= rc[:, None]))
-            vc = torch.where(ok[:, None] & keep, vars_,
-                             torch.full_like(vars_, sentinel))
-            return lc, rc, vc
+            def k_smallest(h, var_pl):
+                """The ht's K smallest variant ids, ascending."""
+                return _k_smallest(torch.cat(
+                    [var_pl, h["iva"][:, None], h["ivb"][:, None]], 1), K)
 
-        def k_smallest(h, var_pl):
-            """The ht's K smallest variant ids, ascending."""
-            return _k_smallest(torch.cat(
-                [var_pl, h["iva"][:, None], h["ivb"][:, None]], 1), K)
+            def claimed_in_span(tabs, sp, l, r):
+                """(claimed, in_span) [n, C]: candidates the winner (or its
+                equal-cost tie) claims, and candidates inside [l - max_shift,
+                r]."""
+                Wh, Th = sp["W"], sp["T"]
+                tie2 = sp["tie2"]
+                cand = sp["cand"]
+                cl = cand.long()
+                cv = tabs[7][cl]
+                claimed = ((cv == Wh["iva"][:, None])
+                           | (cv == Wh["ivb"][:, None])
+                           | (tie2[:, None]
+                              & ((cv == Th["iva"][:, None])
+                                 | (cv == Th["ivb"][:, None]))))
+                cpos = tabs[4][cl]
+                in_span = ((cand < D)
+                           & (cpos >= l[:, None] - max_shift)
+                           & (cpos <= r[:, None]))
+                return claimed, in_span
 
-        def claimed_in_span(tabs, sp, l, r):
-            """(claimed, in_span) [n, C]: candidates the winner (or its
-            equal-cost tie) claims, and candidates inside [l - max_shift,
-            r]."""
-            Wh, Th = sp["W"], sp["T"]
-            tie2 = sp["tie2"]
-            cand = sp["cand"]
-            cl = cand.long()
-            cv = tabs[7][cl]
-            claimed = ((cv == Wh["iva"][:, None])
-                       | (cv == Wh["ivb"][:, None])
-                       | (tie2[:, None]
-                          & ((cv == Th["iva"][:, None])
-                             | (cv == Th["ivb"][:, None]))))
-            cpos = tabs[4][cl]
-            in_span = ((cand < D)
-                       & (cpos >= l[:, None] - max_shift)
-                       & (cpos <= r[:, None]))
-            return claimed, in_span
+            def mate_flags(tabs, sp):
+                """Ungated punt predictor, computable BEFORE the pileup.
 
-        def mate_flags(tabs, sp):
-            """Ungated punt predictor, computable BEFORE the pileup.
+                Pre-punted reads are EXCLUDED from the device pileup (their
+                winner spelling may be mis-framed), because the host rescue
+                adds their HOST alignments to the pileup instead.  Returns
+                (passed_u, amb_all, tier1, causes)."""
+                Wh, Th = sp["W"], sp["T"]
+                tie2 = sp["tie2"]
+                n_valid_w = sp["n_valid_w"]
+                nv = n_valid_w.to(torch.float32)
+                passed_u = ((sp["n_novel_w"] <= max_novel) & (n_valid_w > 0)
+                            & (sp["score_w"] >= min_score_frac * nv))
+                claimed, in_span = claimed_in_span(tabs, sp, Wh["l"], Wh["r"])
+                # ambiguous when (A) residual novels remain next to an
+                # unclaimed in-span candidate, or (B) the winner claims
+                # indels and an unclaimed candidate could combine into an
+                # equal-cost multi-indel spelling the hypothesis set CANNOT
+                # represent (see hgtpu's mate_flags for the cases)
+                cl = sp["cand"].long()
+                (ind_len_t, ind_ins_t) = (tabs[5], tabs[6])
+                claims2 = ((Wh["ivb"] < sentinel)
+                           | (tie2 & (Th["ivb"] < sentinel)))
+                claims1 = (((Wh["iva"] < sentinel)
+                            | (tie2 & (Th["iva"] < sentinel)))
+                           & ~claims2)
+                cpos = tabs[4][cl]
+                zero = torch.zeros((), dtype=torch.int32, device=dev)
+                dl_c = torch.where(ind_ins_t[cl] == 0, ind_len_t[cl], zero)
+                il_c = torch.where(ind_ins_t[cl] == 1, ind_len_t[cl], zero)
+                # exact representability of the combined spelling (claimed
+                # chain + unclaimed candidate Y): the break of Y in the
+                # winner frame is b_Y = pos_Y - l - sum of the claimed
+                # shifts before Y; +-2 edge slack absorbs the l ~ s_a
+                # approximation at clipped spans
+                sh_c = (dl_c - il_c) * claimed
+                before = cpos[:, :, None] < cpos[:, None, :]
+                shift_before = (sh_c[:, :, None] * before).sum(1)
+                rl_f = (sp["oriented"] < 4).sum(1)[:, None]
+                b_est = cpos - Wh["l"][:, None] - shift_before
+                unrep = (b_est <= 2) | (b_est >= rl_f - 2 - il_c)
+                # only geometrically OVERLAPPING combos are unrepresentable
+                for h in (Wh, Th):
+                    gate = (tie2 if h is Th else
+                            torch.ones_like(tie2))[:, None]
+                    for pk, dk in (("pa", "dla"), ("pb", "dlb")):
+                        gap_a = cpos - h[pk][:, None]
+                        unrep = unrep | (gate & (gap_a >= 1)
+                                         & (gap_a <= h[dk][:, None] - 1))
+                        gap_b = h[pk][:, None] - cpos
+                        unrep = unrep | (gate & (gap_b >= 1)
+                                         & (gap_b <= dl_c - 1))
+                # 3-chains are outside the hypothesis space: a winner that
+                # already claims TWO indels keeps the wide window
+                EDGE_L = max_shift + 32
+                near_edge_l = ((cpos <= Wh["l"][:, None] + EDGE_L)
+                               | (cpos >= Wh["r"][:, None] - EDGE_L))
+                free = in_span & ~claimed
+                amb_u = ((free.any(1) & (sp["n_novel_w"] > 0))
+                         | (claims1 & (free & unrep).any(1))
+                         | (claims2 & (free & near_edge_l).any(1)))
 
-            Pre-punted reads are EXCLUDED from the device pileup (their
-            winner spelling may be mis-framed), because the host rescue
-            adds their HOST alignments to the pileup instead.  Returns
-            (passed_u, amb_all, tier1, causes)."""
-            Wh, Th = sp["W"], sp["T"]
-            tie2 = sp["tie2"]
-            n_valid_w = sp["n_valid_w"]
-            nv = n_valid_w.to(torch.float32)
-            passed_u = ((sp["n_novel_w"] <= max_novel) & (n_valid_w > 0)
-                        & (sp["score_w"] >= min_score_frac * nv))
-            claimed, in_span = claimed_in_span(tabs, sp, Wh["l"], Wh["r"])
-            # ambiguous when (A) residual novels remain next to an
-            # unclaimed in-span candidate, or (B) the winner claims
-            # indels and an unclaimed candidate could combine into an
-            # equal-cost multi-indel spelling the hypothesis set CANNOT
-            # represent (see hgtpu's mate_flags for the cases)
-            cl = sp["cand"].long()
-            (ind_len_t, ind_ins_t) = (tabs[5], tabs[6])
-            claims2 = ((Wh["ivb"] < sentinel)
-                       | (tie2 & (Th["ivb"] < sentinel)))
-            claims1 = (((Wh["iva"] < sentinel)
-                        | (tie2 & (Th["iva"] < sentinel)))
-                       & ~claims2)
-            cpos = tabs[4][cl]
-            zero = torch.zeros((), dtype=torch.int32, device=dev)
-            dl_c = torch.where(ind_ins_t[cl] == 0, ind_len_t[cl], zero)
-            il_c = torch.where(ind_ins_t[cl] == 1, ind_len_t[cl], zero)
-            # exact representability of the combined spelling (claimed
-            # chain + unclaimed candidate Y): the break of Y in the
-            # winner frame is b_Y = pos_Y - l - sum of the claimed
-            # shifts before Y; +-2 edge slack absorbs the l ~ s_a
-            # approximation at clipped spans
-            sh_c = (dl_c - il_c) * claimed
-            before = cpos[:, :, None] < cpos[:, None, :]
-            shift_before = (sh_c[:, :, None] * before).sum(1)
-            rl_f = (sp["oriented"] < 4).sum(1)[:, None]
-            b_est = cpos - Wh["l"][:, None] - shift_before
-            unrep = (b_est <= 2) | (b_est >= rl_f - 2 - il_c)
-            # only geometrically OVERLAPPING combos are unrepresentable
-            for h in (Wh, Th):
-                gate = (tie2 if h is Th else
-                        torch.ones_like(tie2))[:, None]
-                for pk, dk in (("pa", "dla"), ("pb", "dlb")):
-                    gap_a = cpos - h[pk][:, None]
-                    unrep = unrep | (gate & (gap_a >= 1)
-                                     & (gap_a <= h[dk][:, None] - 1))
-                    gap_b = h[pk][:, None] - cpos
-                    unrep = unrep | (gate & (gap_b >= 1)
-                                     & (gap_b <= dl_c - 1))
-            # 3-chains are outside the hypothesis space: a winner that
-            # already claims TWO indels keeps the wide window
-            EDGE_L = max_shift + 32
-            near_edge_l = ((cpos <= Wh["l"][:, None] + EDGE_L)
-                           | (cpos >= Wh["r"][:, None] - EDGE_L))
-            free = in_span & ~claimed
-            amb_u = ((free.any(1) & (sp["n_novel_w"] > 0))
-                     | (claims1 & (free & unrep).any(1))
-                     | (claims2 & (free & near_edge_l).any(1)))
+                v1u = k_smallest(Wh, Wh["var"])
+                v2u = k_smallest(Th, Th["var"])
+                # alt-haplotype end-trim ambiguity (host: may_trim ->
+                # identify_ambiguous_diffs) — handed to the host rescue
+                trimmy = may_trim_dev(Wh["l"], Wh["r"])
+                if self._gate_n[0] or self._gate_n[1]:
+                    trimmy = trimmy | (tie2 & may_trim_dev(Th["l"], Th["r"]))
+                # equal-cost DIVERGENT spellings: the host reports the
+                # aligner's single tie-broken alignment, so defer to it
+                tie_div = (tie2 & ~sp["straight_perfect"]
+                           & ((v1u != v2u).any(1)
+                              | (Wh["l"] != Th["l"])
+                              | (Wh["r"] != Th["r"])))
+                # variant-slot overflow: >= K catalog variants in the span
+                trunc = v1u[:, K - 1] < sentinel
+                # tier-1 rescue eligibility: the device winner IS the host
+                # aligner's unique best alignment
+                tier1 = (passed_u & ~amb_u & ~tie_div & sp["uniq_diag"])
+                causes = (amb_u.to(torch.int64)
+                          | (trimmy.to(torch.int64) << 1)
+                          | (tie_div.to(torch.int64) << 2)
+                          | (trunc.to(torch.int64) << 3))
+                return (passed_u, amb_u | trimmy | tie_div | trunc, tier1,
+                        causes)
 
-            v1u = k_smallest(Wh, Wh["var"])
-            v2u = k_smallest(Th, Th["var"])
-            # alt-haplotype end-trim ambiguity (host: may_trim ->
-            # identify_ambiguous_diffs) — handed to the host rescue
-            trimmy = may_trim_dev(Wh["l"], Wh["r"])
-            if self._gate_n[0] or self._gate_n[1]:
-                trimmy = trimmy | (tie2 & may_trim_dev(Th["l"], Th["r"]))
-            # equal-cost DIVERGENT spellings: the host reports the
-            # aligner's single tie-broken alignment, so defer to it
-            tie_div = (tie2 & ~sp["straight_perfect"]
-                       & ((v1u != v2u).any(1)
-                          | (Wh["l"] != Th["l"])
-                          | (Wh["r"] != Th["r"])))
-            # variant-slot overflow: >= K catalog variants in the span
-            trunc = v1u[:, K - 1] < sentinel
-            # tier-1 rescue eligibility: the device winner IS the host
-            # aligner's unique best alignment
-            tier1 = (passed_u & ~amb_u & ~tie_div & sp["uniq_diag"])
-            causes = (amb_u.to(torch.int64)
-                      | (trimmy.to(torch.int64) << 1)
-                      | (tie_div.to(torch.int64) << 2)
-                      | (trunc.to(torch.int64) << 3))
-            return passed_u, amb_u | trimmy | tie_div | trunc, tier1, causes
+            def compat_mxu(tabs, lefts, rights, vars_):
+                """[Hn, A] bool compatibility — the add_count set algebra
+                (typing_core.py:626-677) as TWO products:
 
-        def compat_mxu(tabs, lefts, rights, vars_):
-            """[Hn, A] bool compatibility — the add_count set algebra
-            (typing_core.py:626-677) as TWO products:
+                    cnt(h,a) = Σ_v in_range(h,v) * links[v,a]
+                    own(h,a) = Σ_{v ∈ ht_h}      * links[v,a]
+                    incl = (own == n_own);  excl = (cnt - kv) > 0
 
-                cnt(h,a) = Σ_v in_range(h,v) * links[v,a]
-                own(h,a) = Σ_{v ∈ ht_h}      * links[v,a]
-                incl = (own == n_own);  excl = (cnt - kv) > 0
+                in_range is the reference's overlap rule per variant
+                ((pos ∈ [l,r]) | (right ∈ [l,r])).  bf16 operands (0/1 and
+                small counts) for the tensor cores, a float32 output
+                (``count_product``): exact because every count stays below
+                COUNT_EXACT, which the constructor checked
+                (self._max_count)."""
+                (var_pos_d, var_right_d) = tabs[15:17]
+                links_f = tabs[18]
+                V = links_f.shape[0]
+                Hn = lefts.shape[0]
+                l = lefts[:, None]
+                r = rights[:, None]
+                vp = var_pos_d[:V][None, :]
+                vr = var_right_d[:V][None, :]
+                in_r = (((vp >= l) & (vp <= r))
+                        | ((vr >= l) & (vr <= r)))                 # [Hn, V]
+                # one-hot accumulate of the ht's variant slots; sentinel
+                # slots (== V) land in the dropped last column
+                M2 = torch.zeros((Hn, V + 1), dtype=torch.bfloat16, device=dev)
+                M2.scatter_add_(1, vars_.long(), torch.ones(
+                    vars_.shape, dtype=torch.bfloat16, device=dev))
+                prod = count_product(
+                    torch.cat([in_r.to(torch.bfloat16), M2[:, :V]], 0),
+                    links_f)
+                cnt, own = prod[:Hn], prod[Hn:]
+                real = vars_ < V
+                n_own = real.sum(1).to(torch.float32)
+                vl = vars_.long()
+                kvp = var_pos_d[vl]
+                kvr = var_right_d[vl]
+                k_in = ((((kvp >= l) & (kvp <= r))
+                         | ((kvr >= l) & (kvr <= r))) & real)
+                kv = k_in.sum(1).to(torch.float32)
+                incl = own >= (n_own - 0.5)[:, None]
+                excl = (cnt - kv[:, None]) > 0.5
+                return incl & ~excl
 
-            in_range is the reference's overlap rule per variant
-            ((pos ∈ [l,r]) | (right ∈ [l,r])).  bf16 operands (0/1 and
-            small counts) for the tensor cores, a float32 output
-            (``count_product``): exact because every count stays below
-            COUNT_EXACT, which the constructor checked
-            (self._max_count)."""
-            (var_pos_d, var_right_d) = tabs[15:17]
-            links_f = tabs[18]
-            V = links_f.shape[0]
-            Hn = lefts.shape[0]
-            l = lefts[:, None]
-            r = rights[:, None]
-            vp = var_pos_d[:V][None, :]
-            vr = var_right_d[:V][None, :]
-            in_r = (((vp >= l) & (vp <= r))
-                    | ((vr >= l) & (vr <= r)))                 # [Hn, V]
-            # one-hot accumulate of the ht's variant slots; sentinel
-            # slots (== V) land in the dropped last column
-            M2 = torch.zeros((Hn, V + 1), dtype=torch.bfloat16, device=dev)
-            M2.scatter_add_(1, vars_.long(), torch.ones(
-                vars_.shape, dtype=torch.bfloat16, device=dev))
-            prod = count_product(
-                torch.cat([in_r.to(torch.bfloat16), M2[:, :V]], 0), links_f)
-            cnt, own = prod[:Hn], prod[Hn:]
-            real = vars_ < V
-            n_own = real.sum(1).to(torch.float32)
-            vl = vars_.long()
-            kvp = var_pos_d[vl]
-            kvr = var_right_d[vl]
-            k_in = ((((kvp >= l) & (kvp <= r))
-                     | ((kvr >= l) & (kvr <= r))) & real)
-            kv = k_in.sum(1).to(torch.float32)
-            incl = own >= (n_own - 0.5)[:, None]
-            excl = (cnt - kv[:, None]) > 0.5
-            return incl & ~excl
+            def mate_counts(tabs, sp, rep, want_px, pre_amb=None):
+                """Stages 2b-3 + counting masks for one spelled mate batch,
+                gated against the final pileup `rep`; rep None disables the
+                pileup gate (the legacy programs).  pre_amb (production) is
+                mate_flags' ungated ambiguity, OR'd in so the final punt is
+                a superset of the pileup exclusion.
+                Returns (cnt, cnt_ex, cnt_px, passed, needs_host)."""
+                var_pos_d, var_right_d = tabs[15], tabs[16]
+                n = sp["oriented"].shape[0]
+                Wh, Th = sp["W"], sp["T"]
+                tie2 = sp["tie2"]
+                n_valid_w = sp["n_valid_w"]
+                if rep is None:
+                    varW, varT = Wh["var"], Th["var"]
+                    n_corr = torch.zeros(n, dtype=torch.int32, device=dev)
+                    novel_resid = sp["n_novel_w"]
+                else:
+                    varW, n_corr, novel_resid = gate_hyp(tabs, sp, Wh, rep)
+                    varT, _, _ = gate_hyp(tabs, sp, Th, rep)
+                l1, r1, v1 = Wh["l"], Wh["r"], k_smallest(Wh, varW)
+                l2, r2, v2 = Th["l"], Th["r"], k_smallest(Th, varT)
 
-        def mate_counts(tabs, sp, rep, want_px, pre_amb=None):
-            """Stages 2b-3 + counting masks for one spelled mate batch,
-            gated against the final pileup `rep`; rep None disables the
-            pileup gate (the legacy programs).  pre_amb (production) is
-            mate_flags' ungated ambiguity, OR'd in so the final punt is
-            a superset of the pileup exclusion.
-            Returns (cnt, cnt_ex, cnt_px, passed, needs_host)."""
-            var_pos_d, var_right_d = tabs[15], tabs[16]
-            n = sp["oriented"].shape[0]
-            Wh, Th = sp["W"], sp["T"]
-            tie2 = sp["tie2"]
-            n_valid_w = sp["n_valid_w"]
-            if rep is None:
-                varW, varT = Wh["var"], Th["var"]
-                n_corr = torch.zeros(n, dtype=torch.int32, device=dev)
-                novel_resid = sp["n_novel_w"]
-            else:
-                varW, n_corr, novel_resid = gate_hyp(tabs, sp, Wh, rep)
-                varT, _, _ = gate_hyp(tabs, sp, Th, rep)
-            l1, r1, v1 = Wh["l"], Wh["r"], k_smallest(Wh, varW)
-            l2, r2, v2 = Th["l"], Th["r"], k_smallest(Th, varT)
+                # -- 3. verify gate -------------------------------------- #
+                nv = n_valid_w.to(torch.float32)
+                passed = ((sp["n_novel_w"] <= max_novel) & (n_valid_w > 0)
+                          & (sp["score_w"] >= min_score_frac * nv)
+                          & (n_corr <= corr_cap))
+                if rep is not None and is_hla:
+                    # deletion-plausibility misalignment heuristic
+                    # (typing_core.py:1064-1077), for BOTH claimed indels
+                    _rp, pile, _gt = rep
+                    for pv, dl in ((Wh["pa"], Wh["dla"]),
+                                   (Wh["pb"], Wh["dlb"])):
+                        pvc = pv.clamp(0, P_bb - 1).long()
+                        delp_ok = pile[pvc, 5] * 6 >= pile[pvc, :5].sum(1)
+                        passed = passed & ((dl == 0) | delp_ok)
+                # residual novel edits (or pileup corrections) next to a
+                # catalog indel the spelling does not claim: punt
+                claimed, in_span = claimed_in_span(tabs, sp, l1, r1)
+                ambiguous = ((in_span & ~claimed).any(1)
+                             & ((novel_resid + n_corr) > 0))
+                if pre_amb is not None:
+                    ambiguous = ambiguous | pre_amb
+                needs_host = (~passed | ambiguous) & (n_valid_w > 0)
+                passed = passed & ~ambiguous
 
-            # -- 3. verify gate ------------------------------------------ #
-            nv = n_valid_w.to(torch.float32)
-            passed = ((sp["n_novel_w"] <= max_novel) & (n_valid_w > 0)
-                      & (sp["score_w"] >= min_score_frac * nv)
-                      & (n_corr <= corr_cap))
-            if rep is not None and is_hla:
-                # deletion-plausibility misalignment heuristic
-                # (typing_core.py:1064-1077), for BOTH claimed indels
-                _rp, pile, _gt = rep
-                for pv, dl in ((Wh["pa"], Wh["dla"]),
-                               (Wh["pb"], Wh["dlb"])):
-                    pvc = pv.clamp(0, P_bb - 1).long()
-                    delp_ok = pile[pvc, 5] * 6 >= pile[pvc, :5].sum(1)
-                    passed = passed & ((dl == 0) | delp_ok)
-            # residual novel edits (or pileup corrections) next to a
-            # catalog indel the spelling does not claim: punt
-            claimed, in_span = claimed_in_span(tabs, sp, l1, r1)
-            ambiguous = ((in_span & ~claimed).any(1)
-                         & ((novel_resid + n_corr) > 0))
-            if pre_amb is not None:
-                ambiguous = ambiguous | pre_amb
-            needs_host = (~passed | ambiguous) & (n_valid_w > 0)
-            passed = passed & ~ambiguous
+                # -- 5. compatibility masks (winner + tied alt, at the full
+                # level plus up to 2 exon-clipped windows, + 2 primary-exon
+                # windows for the primary level) -- #
+                groups = [(l1, r1, v1), (l2, r2, v2)]
+                wins = []
+                if staged:
+                    wins.append((ex_l, ex_r, n_exons))
+                if want_px:
+                    wins.append((px_l, px_r, n_pexons))
+                for wl, wr, nw in wins:
+                    for k in (0, 1):
+                        groups.append(clip_ht_w(var_pos_d, var_right_d,
+                                                l1, r1, v1, k, wl, wr, nw))
+                        groups.append(clip_ht_w(var_pos_d, var_right_d,
+                                                l2, r2, v2, k, wl, wr, nw))
+                masks = compat_mxu(tabs,
+                                   torch.cat([g[0] for g in groups]),
+                                   torch.cat([g[1] for g in groups]),
+                                   torch.cat([g[2] for g in groups]))
+                m = [masks[i * n:(i + 1) * n].to(torch.int32)
+                     for i in range(len(groups))]
+                # equal-cost tie union — but a perfect-straight read is
+                # resolved as the straight spelling alone by the host, so the
+                # production path must not union its tie (the legacy
+                # device-EM path keeps the union)
+                tie_cnt = (tie2 if rep is None
+                           else tie2 & ~sp["straight_perfect"])[:, None]
+                cnt = m[0] + m[1] * tie_cnt
+                at = 2
+                if staged:
+                    cnt_ex = (m[at] + m[at + 2]
+                              + (m[at + 1] + m[at + 3]) * tie_cnt)
+                    at += 4
+                else:
+                    cnt_ex = cnt
+                if want_px:
+                    cnt_px = (m[at] + m[at + 2]
+                              + (m[at + 1] + m[at + 3]) * tie_cnt)
+                else:
+                    cnt_px = cnt
+                return cnt, cnt_ex, cnt_px, passed, needs_host
 
-            # -- 5. compatibility masks (winner + tied alt, at the full
-            # level plus up to 2 exon-clipped windows, + 2 primary-exon
-            # windows for the primary level) -- #
-            groups = [(l1, r1, v1), (l2, r2, v2)]
-            wins = []
-            if staged:
-                wins.append((ex_l, ex_r, n_exons))
-            if want_px:
-                wins.append((px_l, px_r, n_pexons))
-            for wl, wr, nw in wins:
-                for k in (0, 1):
-                    groups.append(clip_ht_w(var_pos_d, var_right_d,
-                                            l1, r1, v1, k, wl, wr, nw))
-                    groups.append(clip_ht_w(var_pos_d, var_right_d,
-                                            l2, r2, v2, k, wl, wr, nw))
-            masks = compat_mxu(tabs,
-                               torch.cat([g[0] for g in groups]),
-                               torch.cat([g[1] for g in groups]),
-                               torch.cat([g[2] for g in groups]))
-            m = [masks[i * n:(i + 1) * n].to(torch.int32)
-                 for i in range(len(groups))]
-            # equal-cost tie union — but a perfect-straight read is
-            # resolved as the straight spelling alone by the host, so the
-            # production path must not union its tie (the legacy
-            # device-EM path keeps the union)
-            tie_cnt = (tie2 if rep is None
-                       else tie2 & ~sp["straight_perfect"])[:, None]
-            cnt = m[0] + m[1] * tie_cnt
-            at = 2
-            if staged:
-                cnt_ex = m[at] + m[at + 2] + (m[at + 1] + m[at + 3]) * tie_cnt
-                at += 4
-            else:
-                cnt_ex = cnt
-            if want_px:
-                cnt_px = m[at] + m[at + 2] + (m[at + 1] + m[at + 3]) * tie_cnt
-            else:
-                cnt_px = cnt
-            return cnt, cnt_ex, cnt_px, passed, needs_host
+            def mate_pipeline(tabs, reads):
+                """Legacy single-pass path (ungated), kept bit-identical for
+                the pure-device EM programs and their tests."""
+                sp = mate_spell(tabs, reads)
+                cnt, cnt_ex, _, passed, needs_host = mate_counts(
+                    tabs, sp, None, False)
+                return (cnt, cnt_ex, passed, sp["use_r"], sp["W"]["l"],
+                        sp["W"]["r"], needs_host)
 
-        def mate_pipeline(tabs, reads):
-            """Legacy single-pass path (ungated), kept bit-identical for
-            the pure-device EM programs and their tests."""
-            sp = mate_spell(tabs, reads)
-            cnt, cnt_ex, _, passed, needs_host = mate_counts(
-                tabs, sp, None, False)
-            return (cnt, cnt_ex, passed, sp["use_r"], sp["W"]["l"],
-                    sp["W"]["r"], needs_host)
+            # every `yield x` below is hgtpu's psum(x, axis) (Mesh.run)
+            def finish(cnt, cnt_ex, w, punt):
+                """Stage-5 epilogue: weighted full-level class totals.
+                cnt/cnt_ex [n, A] int compatibility counts, w [n] f32."""
+                w = w * (1.0 - punt.to(torch.float32))
+                mx = cnt.max(1).values
+                cls = ((cnt == mx[:, None])
+                       & (w > 0)[:, None]).to(torch.float32)
+                totals = yield cls.T @ w
+                n_used = yield w.sum()
+                return cnt, cnt_ex, w, totals, n_used, punt
 
-        # hgtpu merges the shards' totals with psum over the mesh; on one
-        # device every psum is the identity, so these programs take none
-        def finish(cnt, cnt_ex, w, punt):
-            """Stage-5 epilogue: weighted full-level class totals.
-            cnt/cnt_ex [n, A] int compatibility counts, w [n] f32."""
-            w = w * (1.0 - punt.to(torch.float32))
-            mx = cnt.max(1).values
-            cls = ((cnt == mx[:, None])
-                   & (w > 0)[:, None]).to(torch.float32)
-            totals = cls.T @ w
-            n_used = w.sum()
-            return cnt, cnt_ex, w, totals, n_used, punt
+            def shard_single(*args):
+                tabs, reads = args[:n_tables], args[n_tables]
+                cnt, cnt_ex, passed, _, _, _, needs_host = \
+                    mate_pipeline(tabs, reads)
+                p = passed[:, None].to(torch.int32)
+                return (yield from finish(cnt * p, cnt_ex * p,
+                                          passed.to(torch.float32),
+                                          needs_host))
 
-        def shard_single(*args):
-            tabs, reads = args[:n_tables], args[n_tables]
-            cnt, cnt_ex, passed, _, _, _, needs_host = \
-                mate_pipeline(tabs, reads)
-            p = passed[:, None].to(torch.int32)
-            return finish(cnt * p, cnt_ex * p,
-                          passed.to(torch.float32), needs_host)
+            def shard_pairs(*args):
+                tabs, r1, r2 = args[:n_tables], args[n_tables], \
+                    args[n_tables + 1]
+                c1, ce1, ok1, o1, l1, rr1, nh1 = mate_pipeline(tabs, r1)
+                c2, ce2, ok2, o2, l2, rr2, nh2 = mate_pipeline(tabs, r2)
+                # -- 4. concordance (typing_core.py:826-852) ------------- #
+                span = torch.maximum(rr1, rr2) - torch.minimum(l1, l2)
+                conc = (o1 != o2) & (span <= MAX_FRAG)
+                used = conc & (ok1 | ok2)
+                k1 = ok1[:, None].to(torch.int32)
+                k2 = ok2[:, None].to(torch.int32)
+                cnt = c1 * k1 + c2 * k2
+                cnt_ex = ce1 * k1 + ce2 * k2
+                punt = conc & (nh1 | nh2)
+                return (yield from finish(cnt, cnt_ex,
+                                          used.to(torch.float32), punt))
 
-        def shard_pairs(*args):
-            tabs, r1, r2 = args[:n_tables], args[n_tables], \
-                args[n_tables + 1]
-            c1, ce1, ok1, o1, l1, rr1, nh1 = mate_pipeline(tabs, r1)
-            c2, ce2, ok2, o2, l2, rr2, nh2 = mate_pipeline(tabs, r2)
-            # -- 4. concordance (typing_core.py:826-852) ----------------- #
-            span = torch.maximum(rr1, rr2) - torch.minimum(l1, l2)
-            conc = (o1 != o2) & (span <= MAX_FRAG)
-            used = conc & (ok1 | ok2)
-            k1 = ok1[:, None].to(torch.int32)
-            k2 = ok2[:, None].to(torch.int32)
-            cnt = c1 * k1 + c2 * k2
-            cnt_ex = ce1 * k1 + ce2 * k2
-            punt = conc & (nh1 | nh2)
-            return finish(cnt, cnt_ex, used.to(torch.float32), punt)
+            def shard_debug(*args):
+                tabs, reads = args[:n_tables], args[n_tables]
+                cnt, _, passed, use_r, lefts, rights, needs_host = \
+                    mate_pipeline(tabs, reads)
+                return (cnt, passed, use_r, lefts, rights, needs_host)
 
-        def shard_debug(*args):
-            tabs, reads = args[:n_tables], args[n_tables]
-            cnt, _, passed, use_r, lefts, rights, needs_host = \
-                mate_pipeline(tabs, reads)
-            return (cnt, passed, use_r, lefts, rights, needs_host)
+            progs["count_single"] = shard_single
+            progs["count_pairs"] = shard_pairs
+            progs["debug"] = shard_debug
 
-        self._count_single = shard_single
-        self._count_pairs = shard_pairs
-        self._debug = shard_debug
+            # -- 6. staged SQUAREM EM over the device-resident classes -- #
+            lens_a = gene.allele_lengths()
+            inv_len_d = torch.from_numpy(np.array(
+                [1.0 / lens_a[a] for a in gene.allele_names],
+                np.float32)).to(dev)
 
-        # -- 6. staged SQUAREM EM over the device-resident classes -- #
-        lens_a = gene.allele_lengths()
-        inv_len_d = torch.from_numpy(np.array(
-            [1.0 / lens_a[a] for a in gene.allele_names], np.float32)).to(dev)
+            def em_shard(remove_low, use_len, cnt, w, include, restrict):
+                """One EM level (the reference's single_abundance,
+                typing_common.py:1282-1410): per-read class = argmax of the
+                compatibility counts over `include`d alleles (add_stat,
+                typing_core.py:1171-1236), intersected with the `restrict`
+                set from the previous stage (the hierarchical staging of
+                typing_core.py:1679-1789); SQUAREM with L1 diff < 1e-4,
+                `em_iters` cap, optional low-abundance pruning and length
+                normalization.  The loop's condition is read on the host
+                each iteration, as lax.while_loop evaluates it; on a mesh
+                of several shards every shard takes it from the psum of
+                their flags, so no shard or rank stops alone."""
+                mxv = torch.where(include[None, :], cnt,
+                                  torch.full_like(cnt, -1)).max(1).values
+                cls = ((cnt == mxv[:, None]) & include[None, :]
+                       & restrict[None, :] & (w > 0)[:, None])
+                M = cls.to(torch.float32)
+                wl = w * cls.any(1)
+
+                def norm(p):
+                    if use_len:
+                        p = p * inv_len_d
+                    return p / p.sum().clamp(min=1e-30)
+
+                def nxt(p):
+                    denom = M @ p
+                    qv = torch.where(denom > 0, wl / denom.clamp(min=1e-30),
+                                     torch.zeros_like(denom))
+                    return norm((yield M.T @ qv) * p)
+
+                def go_on(diff, it):
+                    if it >= em_iters:
+                        return False
+                    flag = diff > 1e-4
+                    if n_shards > 1:
+                        flag = (yield flag.to(torch.int32)) > 0
+                    return bool(flag)
+
+                sizes = M.sum(1).clamp(min=1.0)
+                p = norm((yield M.T @ (wl / sizes)))
+                diff = torch.ones((), dtype=torch.float32, device=dev)
+                it = 0
+                while (yield from go_on(diff, it)):
+                    p1 = yield from nxt(p)
+                    p2 = yield from nxt(p1)
+                    r = p1 - p
+                    v = p2 - p1 - r
+                    ssv = (v * v).sum()
+                    gamma = -torch.sqrt((r * r).sum() / ssv.clamp(min=1e-30))
+                    accel = (p - 2 * gamma * r + gamma * gamma * v).clamp(
+                        min=0.0)
+                    p_new = torch.where(ssv > 0.0, (yield from nxt(accel)), p1)
+                    diff = (p_new - p).abs().sum()
+                    if remove_low and it >= 10:
+                        p_new = torch.where(p_new >= p_new.max() / 10.0, p_new,
+                                            torch.zeros_like(p_new))
+                    p = p_new
+                    it += 1
+                if remove_low:
+                    p = torch.where(p >= p.max() / 10.0, p,
+                                    torch.zeros_like(p))
+                return norm(p)
+
+            for key in ((False, False), (True, False), (True, True)):
+                progs[("em",) + key] = functools.partial(em_shard, *key)
+
+            # ------------------------------------------------------------- #
+            # production class packing (pileup-gated)
+            # ------------------------------------------------------------- #
+            W32 = (A + 31) // 32
+            self._W32 = W32
+            self._class_cap = class_cap
+            self._NLEV = NLEV
+            bitw32 = torch.ones(32, dtype=torch.int64, device=dev) \
+                << torch.arange(32, device=dev)
+
+            def pack_classes(cnts, w_used, punt, excl, n_reads_m, n_loc):
+                """On-device class dedup + single-buffer packing (the
+                device_fold._fold_levels scheme): per level, the argmax-count
+                class row of every used pair is bit-packed along A; rows of
+                all levels hash-sort together (level in the top 2 key bits)
+                and adjacent-compare dedup yields unique rows + aggregated
+                weights.  uint32 values are carried in int64 here.  No step
+                waits for the device (no nonzero, no boolean indexing)."""
+                wi = w_used.to(torch.int32)
+                pad_A = W32 * 32 - A
+                packed_all, totals_all = [], []
+                for li in range(NLEV):
+                    inc = include_d[li]
+                    mx = torch.where(inc[None, :], cnts[li],
+                                     torch.full_like(cnts[li], -1)
+                                     ).max(1).values
+                    cur = ((cnts[li] == mx[:, None]) & inc[None, :]
+                           & (wi > 0)[:, None])
+                    cur_pad = torch.nn.functional.pad(cur, (0, pad_A))
+                    packed = (cur_pad.reshape(n_loc, W32, 32).to(torch.int64)
+                              * bitw32).sum(2)
+                    totals = yield (cur.to(torch.int32) * wi[:, None]).sum(
+                        0, dtype=torch.int32)
+                    packed_all.append(packed)
+                    totals_all.append(totals)
+                LG = NLEV * n_loc
+                flat = torch.cat(packed_all, 0)                    # [LG, W32]
+                mixer = (arange(W32, torch.int64) * 0x9E3779B9
+                         + 0x85EBCA77) & _M32
+                h = _mul32(flat, mixer[None, :]).sum(1) & _M32
+                h = _mul32(h ^ (h >> 15), 0x2C1B3C6D)
+                lev = arange(NLEV, torch.int64).repeat_interleave(n_loc)
+                key = (lev << 30) | (h >> 2)
+                order = torch.argsort(key, stable=True)
+                fs = flat[order]
+                key_s = key[order]
+                neq = (key_s[1:] != key_s[:-1]) \
+                    | (fs[1:] != fs[:-1]).any(1)
+                is_first = torch.cat(
+                    [torch.ones(1, dtype=torch.bool, device=dev), neq])
+                uniq_rank = torch.cumsum(is_first.to(torch.int64), 0) - 1
+                w_rows = wi.repeat(NLEV)[order]
+                uw = torch.zeros(LG, dtype=torch.int32, device=dev).index_add_(
+                    0, uniq_rank, w_rows)
+                # empty segments keep int32 max, as segment_min leaves them
+                min_idx = torch.full((LG,), 2**31 - 1, dtype=torch.int32,
+                                     device=dev).scatter_reduce(
+                    0, uniq_rank, order.to(torch.int32), "amin",
+                    include_self=False)
+                # budget-adaptive fetch cap — must mirror count_classes'
+                # unpack formula exactly (buffer layout contract)
+                cap = min(class_cap, LG, max(512, 65536 // max(W32, 1)))
+                up = _first_rows(is_first, cap)
+                rows_c = fs[up.clamp(0, LG - 1)]
+                n_uniq = is_first.sum()
+                counters = torch.stack([
+                    n_uniq, n_reads_m.to(torch.int64), wi.sum(),
+                    punt.sum()]).to(torch.int64)
+                return (rows_c, uw[:cap], min_idx[:cap],
+                        torch.stack(totals_all), _bitpack(punt, n_loc),
+                        _bitpack(excl, n_loc), counters, fs, is_first, uw,
+                        min_idx)
+
+            def winner_info(sp, tier1, causes):
+                """Per-read tier-1 rescue words: punt causes in the top
+                nibble (bit28 amb, 29 trim, 30 tie, 31 trunc), then
+                (span_l << 2) | (rc << 1) | tier1, mod 2**32; plus the two
+                claimed catalog indel ids (sentinel = none)."""
+                return [_winner_word(causes, sp["W"]["l"], sp["use_r"], tier1),
+                        sp["W"]["iva"], sp["W"]["ivb"]]
+
+            def assemble_buf_b(packed):
+                """Count-pass output: one buffer (int32 bit patterns of
+                hgtpu's uint32 words: class rows + weights + first-seen +
+                totals + punt/excl words + counters) plus the
+                full-resolution overflow leaves."""
+                (rows_c, uw_c, min_c, totals, punt_words, excl_words,
+                 counters, fs, is_first, uw, min_idx) = packed
+                buf = torch.cat([
+                    _to_i32(rows_c.reshape(-1)),
+                    uw_c,
+                    min_c,
+                    totals.reshape(-1),
+                    punt_words,
+                    excl_words,
+                    _to_i32(counters),
+                ])
+                return buf, _to_i32(fs), is_first, uw, min_idx
+
+            # ---- production two-pass protocol -------------------------- #
+            # Pass A (spell): placement + hypothesis spelling + the
+            # rep-INdependent flags + the device pileup (pre-punts
+            # excluded).  Fetches only the pileup, the exclusion mask and
+            # the tier-1 winner words; the spelling state stays on the
+            # device.  The host then aligns the excluded pairs and merges
+            # their alignments into the pileup; Pass B (count) gates and
+            # counts against that final pileup.
+            SP_SCALARS = ("oriented", "use_r", "cand", "tie2", "uniq_diag",
+                          "straight_perfect", "score_w", "n_novel_w",
+                          "n_valid_w")
+            PLANE_KEYS = ("gp", "in_ins", "valid", "var", "match", "l", "r",
+                          "sa", "iva", "ivb", "pa", "pb", "dla", "dlb")
+
+            def sp_flatten(sp):
+                return ([sp[k] for k in SP_SCALARS]
+                        + [sp["W"][k] for k in PLANE_KEYS]
+                        + [sp["T"][k] for k in PLANE_KEYS])
+
+            def sp_unflatten(flat):
+                ns = len(SP_SCALARS)
+                npk = len(PLANE_KEYS)
+                sp = dict(zip(SP_SCALARS, flat[:ns]))
+                sp["W"] = dict(zip(PLANE_KEYS, flat[ns:ns + npk]))
+                sp["T"] = dict(zip(PLANE_KEYS, flat[ns + npk:ns + 2 * npk]))
+                return sp
+
+            NSP = len(SP_SCALARS) + 2 * len(PLANE_KEYS)
+            self._NSTATE = {1: NSP + 2, 2: 2 * NSP + 5}
+
+            def place_single(*args):
+                tabs, reads = args[:n_tables], args[n_tables]
+                s0, use_r, uniq, cw = place_mates(tabs, reads)
+                return torch.stack([s0, use_r.to(torch.int32),
+                                    uniq.to(torch.int32), cw], 1)
+
+            def place_pairs(*args):
+                tabs, r1, r2 = args[:n_tables], args[n_tables], \
+                    args[n_tables + 1]
+                rows = []
+                for r in (r1, r2):
+                    s0, use_r, uniq, cw = place_mates(tabs, r)
+                    rows += [s0, use_r.to(torch.int32),
+                             uniq.to(torch.int32), cw]
+                return torch.stack(rows, 1)
+
+            def spell_single_tail(tabs, sp, n_loc):
+                passed_u, amb_all, tier1, causes = mate_flags(tabs, sp)
+                pre_punt = (~passed_u | amb_all) & (sp["n_valid_w"] > 0)
+                pile = yield pile_contrib(sp, passed_u & ~pre_punt)
+                abuf = torch.cat(
+                    [pile, _bitpack(pre_punt, n_loc)]
+                    + winner_info(sp, tier1, causes))
+                return ((abuf,) + tuple(sp_flatten(sp))
+                        + (amb_all, pre_punt))
+
+            def make_spell_single(ns, prs):
+                def f(*args):
+                    tabs = args[:n_tables]
+                    reads, s0, use_r, uniq = args[n_tables:n_tables + 4]
+                    sp = mate_spell(
+                        tabs, reads,
+                        placed=(s0, use_r.to(torch.bool),
+                                uniq.to(torch.bool)),
+                        pair_combos=prs, n_single=ns)
+                    return (yield from spell_single_tail(tabs, sp,
+                                                         reads.shape[0]))
+                return f
+
+            def count_single_body(tabs, pile_in, rest):
+                sp = sp_unflatten(rest[:NSP])
+                amb_all, pre_punt = rest[NSP], rest[NSP + 1]
+                n_loc = sp["oriented"].shape[0]
+                rep = rep_of(tabs, pile_in)
+                cnt, cnt_ex, cnt_px, passed, needs_host = mate_counts(
+                    tabs, sp, rep, self._with_primary, amb_all)
+                w_used = passed & ~needs_host
+                # punted reads are re-counted by the host rescue; count here
+                # only what the device keeps
+                n_reads_m = ((sp["n_novel_w"] <= max_novel)
+                             & (sp["n_valid_w"] > 0) & ~needs_host).sum()
+                wcol = w_used[:, None].to(torch.int32)
+                cnts = [cnt * wcol, cnt_ex * wcol, cnt_px * wcol][:NLEV]
+                return assemble_buf_b((yield from pack_classes(
+                    cnts, w_used, needs_host, pre_punt, n_reads_m, n_loc)))
+
+            def spell_pairs_tail(tabs, sp1, sp2, n_loc):
+                # -- 4. concordance before the pileup: the host pileup sees
+                # concordant pairs only -- #
+                l1, rr1 = sp1["W"]["l"], sp1["W"]["r"]
+                l2, rr2 = sp2["W"]["l"], sp2["W"]["r"]
+                span = torch.maximum(rr1, rr2) - torch.minimum(l1, l2)
+                conc = (sp1["use_r"] != sp2["use_r"]) & (span <= MAX_FRAG)
+
+                pu1, amb1, t1_1, cz1 = mate_flags(tabs, sp1)
+                pu2, amb2, t1_2, cz2 = mate_flags(tabs, sp2)
+                # the PAIR pre-punts when either mate does
+                v1 = sp1["n_valid_w"] > 0
+                v2 = sp2["n_valid_w"] > 0
+                pre_punt = conc & (((~pu1 | amb1) & v1)
+                                   | ((~pu2 | amb2) & v2))
+                # a pair framed DISCORDANT while either mate carries an
+                # ambiguity signal may be concordant under the host
+                # aligner's tie-break: punt it to the rescue
+                disc_susp = (~conc & v1 & v2
+                             & (~sp1["uniq_diag"] | ~sp2["uniq_diag"]
+                                | amb1 | amb2 | ~pu1 | ~pu2))
+                excl = pre_punt | disc_susp
+                inc1 = conc & pu1 & ~pre_punt
+                inc2 = conc & pu2 & ~pre_punt
+                pile = yield pile_contrib(sp1, inc1) + pile_contrib(sp2, inc2)
+                abuf = torch.cat(
+                    [pile, _bitpack(excl, n_loc)]
+                    + winner_info(sp1, t1_1, cz1)
+                    + winner_info(sp2, t1_2, cz2))
+                return ((abuf,) + tuple(sp_flatten(sp1))
+                        + tuple(sp_flatten(sp2))
+                        + (amb1, amb2, conc, pre_punt, disc_susp))
+
+            def make_spell_pairs(ns, prs):
+                def f(*args):
+                    tabs = args[:n_tables]
+                    r1, r2 = args[n_tables], args[n_tables + 1]
+                    pl = args[n_tables + 2:n_tables + 8]
+                    sp1 = mate_spell(
+                        tabs, r1,
+                        placed=(pl[0], pl[1].to(torch.bool),
+                                pl[2].to(torch.bool)),
+                        pair_combos=prs, n_single=ns)
+                    sp2 = mate_spell(
+                        tabs, r2,
+                        placed=(pl[3], pl[4].to(torch.bool),
+                                pl[5].to(torch.bool)),
+                        pair_combos=prs, n_single=ns)
+                    return (yield from spell_pairs_tail(tabs, sp1, sp2,
+                                                        r1.shape[0]))
+                return f
+
+            def count_pairs_body(tabs, pile_in, rest):
+                sp1 = sp_unflatten(rest[:NSP])
+                sp2 = sp_unflatten(rest[NSP:2 * NSP])
+                amb1, amb2, conc, pre_punt, disc_susp = rest[2 * NSP:]
+                n_loc = sp1["oriented"].shape[0]
+                rep = rep_of(tabs, pile_in)
+                c1, ce1, cp1, ok1, nh1 = mate_counts(tabs, sp1, rep,
+                                                     self._with_primary, amb1)
+                c2, ce2, cp2, ok2, nh2 = mate_counts(tabs, sp2, rep,
+                                                     self._with_primary, amb2)
+                punt = (conc & (nh1 | nh2)) | disc_susp
+                excl = pre_punt | disc_susp
+                used = conc & (ok1 | ok2) & ~punt
+                o1 = (ok1 & used)[:, None].to(torch.int32)
+                o2 = (ok2 & used)[:, None].to(torch.int32)
+                cnts = [c1 * o1 + c2 * o2, ce1 * o1 + ce2 * o2,
+                        cp1 * o1 + cp2 * o2][:NLEV]
+                # punted pairs are re-counted by the host rescue
+                n_reads_m = ((conc & ~punt)[:, None] & torch.stack([
+                    (sp1["n_novel_w"] <= max_novel) & (sp1["n_valid_w"] > 0),
+                    (sp2["n_novel_w"] <= max_novel) & (sp2["n_valid_w"] > 0),
+                ], 1)).sum()
+                return assemble_buf_b((yield from pack_classes(
+                    cnts, used, punt, excl, n_reads_m, n_loc)))
+
+            def make_count_multi(m, T):
+                """Count pass over T spelling tiers in ONE call: the
+                per-tier rows are concatenated (row-independent gate and
+                count), so the whole batch is gated and deduplicated
+                together."""
+                NS = self._NSTATE[m]
+                body = count_single_body if m == 1 else count_pairs_body
+
+                def f(*args):
+                    tabs = args[:n_tables]
+                    pile_in = args[n_tables]
+                    rest = args[n_tables + 1:]
+                    parts = [rest[t * NS:(t + 1) * NS] for t in range(T)]
+                    cat = parts[0] if T == 1 else tuple(
+                        torch.cat([p[k] for p in parts], 0)
+                        for k in range(NS))
+                    return (yield from body(tabs, pile_in, cat))
+                return f
+
+            # spelling tiers: reads are partitioned by their pair's WIDE
+            # candidate count (place pass) so the hypothesis budget matches
+            # the local indel density; tiered == full, read for read
+            self._tier_cfg = ((0, ()), (1, ()),
+                              (max_indel_cand, PAIR_COMBOS))
+            progs["place_single"] = place_single
+            progs["place_pairs"] = place_pairs
+            for t, (ns, prs) in enumerate(self._tier_cfg):
+                progs[("spell_single", t)] = make_spell_single(ns, prs)
+                progs[("spell_pairs", t)] = make_spell_pairs(ns, prs)
+            # fused place+spell at the gene's hypothesis ceiling: one pass
+            # for the whole batch (no place fetch, no tier partition)
+            fused_ns = self._fused_ns
+            fused_prs = tuple((u, v) for u in range(fused_ns)
+                              for v in range(u + 1, fused_ns))
+            self._fused_H = 1 + 2 * fused_ns + 3 * len(fused_prs)
+
+            def spell_fused_single(*args):
+                tabs = args[:n_tables]
+                reads = args[n_tables]
+                sp = mate_spell(tabs, reads, pair_combos=fused_prs,
+                                n_single=fused_ns)
+                return (yield from spell_single_tail(tabs, sp,
+                                                     reads.shape[0]))
+
+            def spell_fused_pairs(*args):
+                tabs = args[:n_tables]
+                r1, r2 = args[n_tables], args[n_tables + 1]
+                sp1 = mate_spell(tabs, r1, pair_combos=fused_prs,
+                                 n_single=fused_ns)
+                sp2 = mate_spell(tabs, r2, pair_combos=fused_prs,
+                                 n_single=fused_ns)
+                return (yield from spell_pairs_tail(tabs, sp1, sp2,
+                                                    r1.shape[0]))
+
+            progs[("fused", 1)] = spell_fused_single
+            progs[("fused", 2)] = spell_fused_pairs
+            for m in (1, 2):
+                for T in (1, 2, 3):
+                    progs[("count_multi", m, T)] = make_count_multi(m, T)
+
+            def _combine(*bufs):
+                return torch.cat([b.reshape(1, -1) for b in bufs], 1)
+
+            progs["combine"] = _combine
+            return progs
+
+        # the programs' bodies and tables for each distinct shard device
+        self._progs, self._tables_on = {}, {}
+        for d in mesh.devices:
+            if str(d) not in self._progs:
+                self._progs[str(d)] = programs(d)
+                self._tables_on[str(d)] = tuple(t.to(d) for t in self._tables)
         self._ones = torch.ones(A, dtype=torch.bool, device=dev)
         self._rep_mask = torch.from_numpy(self._rep_mask_np).to(dev)
 
-        def em_shard(remove_low, use_len, cnt, w, include, restrict):
-            """One EM level (the reference's single_abundance,
-            typing_common.py:1282-1410): per-read class = argmax of the
-            compatibility counts over `include`d alleles (add_stat,
-            typing_core.py:1171-1236), intersected with the `restrict`
-            set from the previous stage (the hierarchical staging of
-            typing_core.py:1679-1789); SQUAREM with L1 diff < 1e-4,
-            `em_iters` cap, optional low-abundance pruning and length
-            normalization.  The loop's condition is read on the host
-            each iteration, as lax.while_loop evaluates it."""
-            mxv = torch.where(include[None, :], cnt,
-                              torch.full_like(cnt, -1)).max(1).values
-            cls = ((cnt == mxv[:, None]) & include[None, :]
-                   & restrict[None, :] & (w > 0)[:, None])
-            M = cls.to(torch.float32)
-            wl = w * cls.any(1)
+        # this typer's tables as already placed on every shard
+        own = tuple(Replicated([self._tables_on[str(d)][i]
+                                for d in mesh.devices])
+                    for i in range(n_tables))
 
-            def norm(p):
-                if use_len:
-                    p = p * inv_len_d
-                return p / p.sum().clamp(min=1e-30)
+        def program(key, specs, outs):
+            """hgtpu's jit(shard_map(body, mesh, in_specs=(P(),) * n_tables
+            + specs, out_specs=outs)): the tables first, then the
+            program's inputs.  This typer's own tables are not copied
+            again: each shard takes its device's copy."""
+            run = mesh.shard_map(lambda d: self._progs[str(d)][key],
+                                 (REP,) * n_tables + specs, outs)
 
-            def nxt(p):
-                denom = M @ p
-                qv = torch.where(denom > 0, wl / denom.clamp(min=1e-30),
-                                 torch.zeros_like(denom))
-                return norm((M.T @ qv) * p)
+            def call(*args):
+                if mesh.n_local > 1 and all(
+                        a is b for a, b in zip(args[:n_tables],
+                                               self._tables)):
+                    args = own + args[n_tables:]
+                return run(*args)
+            return call
 
-            sizes = M.sum(1).clamp(min=1.0)
-            p = norm(M.T @ (wl / sizes))
-            diff = torch.ones((), dtype=torch.float32, device=dev)
-            it = 0
-            while bool(diff > 1e-4) and it < em_iters:
-                p1 = nxt(p)
-                p2 = nxt(p1)
-                r = p1 - p
-                v = p2 - p1 - r
-                ssv = (v * v).sum()
-                gamma = -torch.sqrt((r * r).sum() / ssv.clamp(min=1e-30))
-                accel = (p - 2 * gamma * r + gamma * gamma * v).clamp(
-                    min=0.0)
-                p_new = torch.where(ssv > 0.0, nxt(accel), p1)
-                diff = (p_new - p).abs().sum()
-                if remove_low and it >= 10:
-                    p_new = torch.where(p_new >= p_new.max() / 10.0, p_new,
-                                        torch.zeros_like(p_new))
-                p = p_new
-                it += 1
-            if remove_low:
-                p = torch.where(p >= p.max() / 10.0, p, torch.zeros_like(p))
-            return norm(p)
-
+        NS1, NS2 = self._NSTATE[1], self._NSTATE[2]
+        S = SHARD
+        cnt_outs = (S, S, S, REP, REP, S)
+        self._count_single = program("count_single", (S,), cnt_outs)
+        self._count_pairs = program("count_pairs", (S, S), cnt_outs)
+        self._debug = program("debug", (S,), (S,) * 6)
+        self._place_single_p = program("place_single", (S,), S)
+        self._place_pairs_p = program("place_pairs", (S, S), S)
+        self._spell_single_t = [program(("spell_single", t), (S,) * 4,
+                                        (S,) * (1 + NS1)) for t in range(3)]
+        self._spell_pairs_t = [program(("spell_pairs", t), (S,) * 8,
+                                       (S,) * (1 + NS2)) for t in range(3)]
+        self._spell_fused = {1: program(("fused", 1), (S,), (S,) * (1 + NS1)),
+                             2: program(("fused", 2), (S, S),
+                                        (S,) * (1 + NS2))}
+        self._count_multi = {
+            (m, T): program(("count_multi", m, T),
+                            (REP,) + (S,) * (T * self._NSTATE[m]), (S,) * 5)
+            for m in (1, 2) for T in (1, 2, 3)}
         self._em_steps = {
-            key: functools.partial(em_shard, *key)
+            key: mesh.shard_map(
+                lambda d, key=key: self._progs[str(d)][("em",) + key],
+                (S, S, REP, REP), REP)
             for key in ((False, False), (True, False), (True, True))}
-
-        # ------------------------------------------------------------- #
-        # production class packing (pileup-gated)
-        # ------------------------------------------------------------- #
-        W32 = (A + 31) // 32
-        self._W32 = W32
-        self._class_cap = class_cap
-        self._NLEV = NLEV
-        bitw32 = torch.ones(32, dtype=torch.int64, device=dev) \
-            << torch.arange(32, device=dev)
-
-        def pack_classes(cnts, w_used, punt, excl, n_reads_m, n_loc):
-            """On-device class dedup + single-buffer packing (the
-            device_fold._fold_levels scheme): per level, the argmax-count
-            class row of every used pair is bit-packed along A; rows of
-            all levels hash-sort together (level in the top 2 key bits)
-            and adjacent-compare dedup yields unique rows + aggregated
-            weights.  uint32 values are carried in int64 here.  No step
-            waits for the device (no nonzero, no boolean indexing)."""
-            wi = w_used.to(torch.int32)
-            pad_A = W32 * 32 - A
-            packed_all, totals_all = [], []
-            for li in range(NLEV):
-                inc = include_d[li]
-                mx = torch.where(inc[None, :], cnts[li],
-                                 torch.full_like(cnts[li], -1)).max(1).values
-                cur = ((cnts[li] == mx[:, None]) & inc[None, :]
-                       & (wi > 0)[:, None])
-                cur_pad = torch.nn.functional.pad(cur, (0, pad_A))
-                packed = (cur_pad.reshape(n_loc, W32, 32).to(torch.int64)
-                          * bitw32).sum(2)
-                totals = (cur.to(torch.int32) * wi[:, None]).sum(
-                    0, dtype=torch.int32)
-                packed_all.append(packed)
-                totals_all.append(totals)
-            LG = NLEV * n_loc
-            flat = torch.cat(packed_all, 0)                    # [LG, W32]
-            mixer = (arange(W32, torch.int64) * 0x9E3779B9
-                     + 0x85EBCA77) & _M32
-            h = _mul32(flat, mixer[None, :]).sum(1) & _M32
-            h = _mul32(h ^ (h >> 15), 0x2C1B3C6D)
-            lev = arange(NLEV, torch.int64).repeat_interleave(n_loc)
-            key = (lev << 30) | (h >> 2)
-            order = torch.argsort(key, stable=True)
-            fs = flat[order]
-            key_s = key[order]
-            neq = (key_s[1:] != key_s[:-1]) \
-                | (fs[1:] != fs[:-1]).any(1)
-            is_first = torch.cat(
-                [torch.ones(1, dtype=torch.bool, device=dev), neq])
-            uniq_rank = torch.cumsum(is_first.to(torch.int64), 0) - 1
-            w_rows = wi.repeat(NLEV)[order]
-            uw = torch.zeros(LG, dtype=torch.int32, device=dev).index_add_(
-                0, uniq_rank, w_rows)
-            # empty segments keep int32 max, as segment_min leaves them
-            min_idx = torch.full((LG,), 2**31 - 1, dtype=torch.int32,
-                                 device=dev).scatter_reduce(
-                0, uniq_rank, order.to(torch.int32), "amin",
-                include_self=False)
-            # budget-adaptive fetch cap — must mirror count_classes'
-            # unpack formula exactly (buffer layout contract)
-            cap = min(class_cap, LG, max(512, 65536 // max(W32, 1)))
-            up = _first_rows(is_first, cap)
-            rows_c = fs[up.clamp(0, LG - 1)]
-            n_uniq = is_first.sum()
-            counters = torch.stack([
-                n_uniq, n_reads_m.to(torch.int64), wi.sum(),
-                punt.sum()]).to(torch.int64)
-            return (rows_c, uw[:cap], min_idx[:cap],
-                    torch.stack(totals_all), _bitpack(punt, n_loc),
-                    _bitpack(excl, n_loc), counters, fs, is_first, uw,
-                    min_idx)
-
-        def winner_info(sp, tier1, causes):
-            """Per-read tier-1 rescue words: punt causes in the top
-            nibble (bit28 amb, 29 trim, 30 tie, 31 trunc), then
-            (span_l << 2) | (rc << 1) | tier1, mod 2**32; plus the two
-            claimed catalog indel ids (sentinel = none)."""
-            return [_winner_word(causes, sp["W"]["l"], sp["use_r"], tier1),
-                    sp["W"]["iva"], sp["W"]["ivb"]]
-
-        def assemble_buf_b(packed):
-            """Count-pass output: one buffer (int32 bit patterns of
-            hgtpu's uint32 words: class rows + weights + first-seen +
-            totals + punt/excl words + counters) plus the
-            full-resolution overflow leaves."""
-            (rows_c, uw_c, min_c, totals, punt_words, excl_words,
-             counters, fs, is_first, uw, min_idx) = packed
-            buf = torch.cat([
-                _to_i32(rows_c.reshape(-1)),
-                uw_c,
-                min_c,
-                totals.reshape(-1),
-                punt_words,
-                excl_words,
-                _to_i32(counters),
-            ])
-            return buf, _to_i32(fs), is_first, uw, min_idx
-
-        # ---- production two-pass protocol -------------------------- #
-        # Pass A (spell): placement + hypothesis spelling + the
-        # rep-INdependent flags + the device pileup (pre-punts
-        # excluded).  Fetches only the pileup, the exclusion mask and
-        # the tier-1 winner words; the spelling state stays on the
-        # device.  The host then aligns the excluded pairs and merges
-        # their alignments into the pileup; Pass B (count) gates and
-        # counts against that final pileup.
-        SP_SCALARS = ("oriented", "use_r", "cand", "tie2", "uniq_diag",
-                      "straight_perfect", "score_w", "n_novel_w",
-                      "n_valid_w")
-        PLANE_KEYS = ("gp", "in_ins", "valid", "var", "match", "l", "r",
-                      "sa", "iva", "ivb", "pa", "pb", "dla", "dlb")
-
-        def sp_flatten(sp):
-            return ([sp[k] for k in SP_SCALARS]
-                    + [sp["W"][k] for k in PLANE_KEYS]
-                    + [sp["T"][k] for k in PLANE_KEYS])
-
-        def sp_unflatten(flat):
-            ns = len(SP_SCALARS)
-            npk = len(PLANE_KEYS)
-            sp = dict(zip(SP_SCALARS, flat[:ns]))
-            sp["W"] = dict(zip(PLANE_KEYS, flat[ns:ns + npk]))
-            sp["T"] = dict(zip(PLANE_KEYS, flat[ns + npk:ns + 2 * npk]))
-            return sp
-
-        NSP = len(SP_SCALARS) + 2 * len(PLANE_KEYS)
-        self._NSTATE = {1: NSP + 2, 2: 2 * NSP + 5}
-
-        def place_single(*args):
-            tabs, reads = args[:n_tables], args[n_tables]
-            s0, use_r, uniq, cw = place_mates(tabs, reads)
-            return torch.stack([s0, use_r.to(torch.int32),
-                                uniq.to(torch.int32), cw], 1)
-
-        def place_pairs(*args):
-            tabs, r1, r2 = args[:n_tables], args[n_tables], \
-                args[n_tables + 1]
-            rows = []
-            for r in (r1, r2):
-                s0, use_r, uniq, cw = place_mates(tabs, r)
-                rows += [s0, use_r.to(torch.int32),
-                         uniq.to(torch.int32), cw]
-            return torch.stack(rows, 1)
-
-        def spell_single_tail(tabs, sp, n_loc):
-            passed_u, amb_all, tier1, causes = mate_flags(tabs, sp)
-            pre_punt = (~passed_u | amb_all) & (sp["n_valid_w"] > 0)
-            pile = pile_contrib(sp, passed_u & ~pre_punt)
-            abuf = torch.cat(
-                [pile, _bitpack(pre_punt, n_loc)]
-                + winner_info(sp, tier1, causes))
-            return ((abuf,) + tuple(sp_flatten(sp))
-                    + (amb_all, pre_punt))
-
-        def make_spell_single(ns, prs):
-            def f(*args):
-                tabs = args[:n_tables]
-                reads, s0, use_r, uniq = args[n_tables:n_tables + 4]
-                sp = mate_spell(
-                    tabs, reads,
-                    placed=(s0, use_r.to(torch.bool),
-                            uniq.to(torch.bool)),
-                    pair_combos=prs, n_single=ns)
-                return spell_single_tail(tabs, sp, reads.shape[0])
-            return f
-
-        def count_single_body(tabs, pile_in, rest):
-            sp = sp_unflatten(rest[:NSP])
-            amb_all, pre_punt = rest[NSP], rest[NSP + 1]
-            n_loc = sp["oriented"].shape[0]
-            rep = rep_of(tabs, pile_in)
-            cnt, cnt_ex, cnt_px, passed, needs_host = mate_counts(
-                tabs, sp, rep, self._with_primary, amb_all)
-            w_used = passed & ~needs_host
-            # punted reads are re-counted by the host rescue; count here
-            # only what the device keeps
-            n_reads_m = ((sp["n_novel_w"] <= max_novel)
-                         & (sp["n_valid_w"] > 0) & ~needs_host).sum()
-            wcol = w_used[:, None].to(torch.int32)
-            cnts = [cnt * wcol, cnt_ex * wcol, cnt_px * wcol][:NLEV]
-            return assemble_buf_b(pack_classes(
-                cnts, w_used, needs_host, pre_punt, n_reads_m, n_loc))
-
-        def spell_pairs_tail(tabs, sp1, sp2, n_loc):
-            # -- 4. concordance before the pileup: the host pileup sees
-            # concordant pairs only -- #
-            l1, rr1 = sp1["W"]["l"], sp1["W"]["r"]
-            l2, rr2 = sp2["W"]["l"], sp2["W"]["r"]
-            span = torch.maximum(rr1, rr2) - torch.minimum(l1, l2)
-            conc = (sp1["use_r"] != sp2["use_r"]) & (span <= MAX_FRAG)
-
-            pu1, amb1, t1_1, cz1 = mate_flags(tabs, sp1)
-            pu2, amb2, t1_2, cz2 = mate_flags(tabs, sp2)
-            # the PAIR pre-punts when either mate does
-            v1 = sp1["n_valid_w"] > 0
-            v2 = sp2["n_valid_w"] > 0
-            pre_punt = conc & (((~pu1 | amb1) & v1)
-                               | ((~pu2 | amb2) & v2))
-            # a pair framed DISCORDANT while either mate carries an
-            # ambiguity signal may be concordant under the host
-            # aligner's tie-break: punt it to the rescue
-            disc_susp = (~conc & v1 & v2
-                         & (~sp1["uniq_diag"] | ~sp2["uniq_diag"]
-                            | amb1 | amb2 | ~pu1 | ~pu2))
-            excl = pre_punt | disc_susp
-            inc1 = conc & pu1 & ~pre_punt
-            inc2 = conc & pu2 & ~pre_punt
-            pile = pile_contrib(sp1, inc1) + pile_contrib(sp2, inc2)
-            abuf = torch.cat(
-                [pile, _bitpack(excl, n_loc)]
-                + winner_info(sp1, t1_1, cz1)
-                + winner_info(sp2, t1_2, cz2))
-            return ((abuf,) + tuple(sp_flatten(sp1))
-                    + tuple(sp_flatten(sp2))
-                    + (amb1, amb2, conc, pre_punt, disc_susp))
-
-        def make_spell_pairs(ns, prs):
-            def f(*args):
-                tabs = args[:n_tables]
-                r1, r2 = args[n_tables], args[n_tables + 1]
-                pl = args[n_tables + 2:n_tables + 8]
-                sp1 = mate_spell(
-                    tabs, r1,
-                    placed=(pl[0], pl[1].to(torch.bool),
-                            pl[2].to(torch.bool)),
-                    pair_combos=prs, n_single=ns)
-                sp2 = mate_spell(
-                    tabs, r2,
-                    placed=(pl[3], pl[4].to(torch.bool),
-                            pl[5].to(torch.bool)),
-                    pair_combos=prs, n_single=ns)
-                return spell_pairs_tail(tabs, sp1, sp2, r1.shape[0])
-            return f
-
-        def count_pairs_body(tabs, pile_in, rest):
-            sp1 = sp_unflatten(rest[:NSP])
-            sp2 = sp_unflatten(rest[NSP:2 * NSP])
-            amb1, amb2, conc, pre_punt, disc_susp = rest[2 * NSP:]
-            n_loc = sp1["oriented"].shape[0]
-            rep = rep_of(tabs, pile_in)
-            c1, ce1, cp1, ok1, nh1 = mate_counts(tabs, sp1, rep,
-                                                 self._with_primary, amb1)
-            c2, ce2, cp2, ok2, nh2 = mate_counts(tabs, sp2, rep,
-                                                 self._with_primary, amb2)
-            punt = (conc & (nh1 | nh2)) | disc_susp
-            excl = pre_punt | disc_susp
-            used = conc & (ok1 | ok2) & ~punt
-            o1 = (ok1 & used)[:, None].to(torch.int32)
-            o2 = (ok2 & used)[:, None].to(torch.int32)
-            cnts = [c1 * o1 + c2 * o2, ce1 * o1 + ce2 * o2,
-                    cp1 * o1 + cp2 * o2][:NLEV]
-            # punted pairs are re-counted by the host rescue
-            n_reads_m = ((conc & ~punt)[:, None] & torch.stack([
-                (sp1["n_novel_w"] <= max_novel) & (sp1["n_valid_w"] > 0),
-                (sp2["n_novel_w"] <= max_novel) & (sp2["n_valid_w"] > 0),
-            ], 1)).sum()
-            return assemble_buf_b(pack_classes(
-                cnts, used, punt, excl, n_reads_m, n_loc))
-
-        def make_count_multi(m, T):
-            """Count pass over T spelling tiers in ONE call: the
-            per-tier rows are concatenated (row-independent gate and
-            count), so the whole batch is gated and deduplicated
-            together."""
-            NS = self._NSTATE[m]
-            body = count_single_body if m == 1 else count_pairs_body
-
-            def f(*args):
-                tabs = args[:n_tables]
-                pile_in = args[n_tables]
-                rest = args[n_tables + 1:]
-                parts = [rest[t * NS:(t + 1) * NS] for t in range(T)]
-                cat = parts[0] if T == 1 else tuple(
-                    torch.cat([p[k] for p in parts], 0)
-                    for k in range(NS))
-                return body(tabs, pile_in, cat)
-            return f
-
-        # spelling tiers: reads are partitioned by their pair's WIDE
-        # candidate count (place pass) so the hypothesis budget matches
-        # the local indel density; tiered == full, read for read
-        self._tier_cfg = ((0, ()), (1, ()),
-                          (max_indel_cand, PAIR_COMBOS))
-        self._place_single_p = place_single
-        self._place_pairs_p = place_pairs
-        self._spell_single_t = [make_spell_single(ns, prs)
-                                for ns, prs in self._tier_cfg]
-        self._spell_pairs_t = [make_spell_pairs(ns, prs)
-                               for ns, prs in self._tier_cfg]
-        # fused place+spell at the gene's hypothesis ceiling: one pass
-        # for the whole batch (no place fetch, no tier partition)
-        fused_ns = self._fused_ns
-        fused_prs = tuple((u, v) for u in range(fused_ns)
-                          for v in range(u + 1, fused_ns))
-        self._fused_H = 1 + 2 * fused_ns + 3 * len(fused_prs)
-
-        def spell_fused_single(*args):
-            tabs = args[:n_tables]
-            reads = args[n_tables]
-            sp = mate_spell(tabs, reads, pair_combos=fused_prs,
-                            n_single=fused_ns)
-            return spell_single_tail(tabs, sp, reads.shape[0])
-
-        def spell_fused_pairs(*args):
-            tabs = args[:n_tables]
-            r1, r2 = args[n_tables], args[n_tables + 1]
-            sp1 = mate_spell(tabs, r1, pair_combos=fused_prs,
-                             n_single=fused_ns)
-            sp2 = mate_spell(tabs, r2, pair_combos=fused_prs,
-                             n_single=fused_ns)
-            return spell_pairs_tail(tabs, sp1, sp2, r1.shape[0])
-
-        self._spell_fused = {1: spell_fused_single, 2: spell_fused_pairs}
-        self._count_multi = {(m, T): make_count_multi(m, T)
-                             for m in (1, 2) for T in (1, 2, 3)}
-
-        def _combine(*bufs):
-            return torch.cat([b.reshape(1, -1) for b in bufs], 1)
-
-        # the per-tier spell buffers concatenated on the device, so the
-        # spell pass fetches ONE array
-        self._combine_bufs = _combine
+        # the per-tier spell buffers concatenated on each shard, so the
+        # spell pass fetches ONE array: [n_shards, sum of widths]
+        self._combine_bufs = mesh.shard_map(
+            lambda d: self._progs[str(d)]["combine"], None, S)
 
     # ------------------------------------------------------------------ #
     # host side: a copy of hgtpu's, with torch transfers
@@ -1617,7 +1719,7 @@ class ShardedTyper:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def _pad(self, codes, bucket=False):
-        n, d = codes.shape[0], self.n_devices
+        n, d = codes.shape[0], self.mesh.n_local
         target = n
         if bucket:
             # eighth-of-octave bucketing bounds the pass shapes to ~8 per
@@ -1689,8 +1791,17 @@ class ShardedTyper:
         pass then gates and counts against it.  When None, the count
         pass gates against the device pileup unchanged.  `overlap()`
         runs on the host while the count pass is in flight."""
+        if self.mesh.world > 1:
+            # the tier choice and the overflow refetch depend on each
+            # rank's data, so the ranks' collectives would not line up;
+            # hgtpu never runs count_classes across processes either
+            raise ValueError(
+                "count_classes runs on a mesh local to this process; %r spans "
+                "ranks: type each rank's reads on a local mesh and merge on "
+                "the host (multihost.type_reads_device_distributed)"
+                % self.mesh)
         n = r1_codes.shape[0]
-        ndev = self.n_devices
+        ndev = self.mesh.n_local
         n_mates = 1 if r2_codes is None else 2
         NLEV, W32, A = self._NLEV, self._W32, self.A
         P6 = self.P_bb * 6
@@ -1970,14 +2081,14 @@ class ShardedTyper:
         return (np.asarray(prob), totals.cpu().numpy(), float(n_used),
                 punt.cpu().numpy()[:n])
 
-    def count_em_global(self, global_codes):
-        """hgtpu's single-call EM entry over a code array that every
-        process of a multi-host run builds alike.  On one device the
-        array is the whole batch: returns (prob, totals, n_used, punt) —
-        the caller MUST rescue or account for the punt mask (never drop
-        it silently)."""
+    def count_em_global(self, local_codes):
+        """hgtpu's single-call EM entry over the global read set, each
+        rank passing only its own rows (``multihost.distributed_call``),
+        a multiple of the local shards: returns the replicated (prob,
+        totals, n_used) and this rank's punt mask, which the caller MUST
+        rescue or account for (never drop it silently)."""
         return self._result(self._count_single(
-            *self._tables, self._dev(global_codes)), global_codes.shape[0])
+            *self._tables, self._dev(local_codes)), local_codes.shape[0])
 
     def __call__(self, read_codes: np.ndarray):
         n = read_codes.shape[0]

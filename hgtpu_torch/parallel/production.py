@@ -1,6 +1,6 @@
 # Port of hgtpu/parallel/production.py: the rescue helpers are copies
 # (imports pointed at the port, a device passed through); the entry runs
-# on one torch device in place of a mesh.
+# the device program over a sharded.Mesh in place of a jax Mesh.
 """The production typing path: the device program IS the pipeline, the
 host engine rescues the punt mask.
 
@@ -18,8 +18,9 @@ compatibility counting, on-device class dedup — then:
 3. runs the reference's staged EM hierarchy (typer/staging.py) on the
    merged cmpt dicts.
 
-`pipeline.type_reads` routes here whenever the options are
-device-compatible (see `device_typing_supported`).
+A mesh of one shard on one card is the same program as a mesh of several
+shards or cards; `pipeline.type_reads` routes here whenever the options
+are device-compatible (see `device_typing_supported`).
 """
 from __future__ import annotations
 
@@ -33,6 +34,15 @@ from ..typer.counting import StatAccumulator
 from ..typer.engine import (DEVICE_FOLD_MIN_A, GeneTyper, GeneTypingResult,
                             NovelVars, TypingOptions, _concordant,
                             _gene_shared_state)
+from .sharded import Mesh, make_mesh
+
+
+def default_mesh(device=None) -> Mesh:
+    """One data-parallel mesh over every visible card, one shard each
+    (hgtpu's mesh over every local device); a one-shard mesh on `device`
+    when one is asked for, the CPU included.  Without a card and without
+    `device` it raises, as every entry of the port does."""
+    return make_mesh(None, device)
 
 
 def device_typing_supported(opts: TypingOptions, paired: bool) -> bool:
@@ -53,21 +63,28 @@ def device_typing_supported(opts: TypingOptions, paired: bool) -> bool:
     return True
 
 
-def _shared_sharded_typer(gene: GeneRef, opts: TypingOptions, device,
+def _mesh_key(mesh: Mesh):
+    """Stable identity for a Mesh: its shard devices in order and its
+    group's rank and size.  Never key on id(mesh): a collected mesh's id
+    can be reused by another mesh of the same shape (hgtpu's warning)."""
+    return (tuple(str(d) for d in mesh.devices), mesh.rank, mesh.world)
+
+
+def _shared_sharded_typer(gene: GeneRef, opts: TypingOptions, mesh: Mesh,
                           read_len: int):
-    """The gene's ShardedTyper for `device`, built once, on the port's
+    """The gene's ShardedTyper over `mesh`, built once, on the port's
     own shared state (never hgtpu's)."""
     from .e2e import ShardedTyper
 
     st = _gene_shared_state(gene)
-    key = ("sharded_typer", str(device), read_len, opts.family,
+    key = ("sharded_typer", _mesh_key(mesh), read_len, opts.family,
            opts.num_editdist, bool(opts.type_primary_exons))
     hit = st.get(key)
     if hit is None:
-        hit = ShardedTyper(gene, device, read_len=read_len,
+        hit = ShardedTyper(gene, read_len=read_len,
                            max_novel=opts.num_editdist,
                            family=opts.family,
-                           with_primary=opts.type_primary_exons)
+                           with_primary=opts.type_primary_exons, mesh=mesh)
         st[key] = hit
     return hit
 
@@ -520,23 +537,29 @@ def _count_rescued(gene, opts, reads_1, by_pair, idx, mpileup, stats,
 
 
 def type_reads_device(gene: GeneRef, reads_1, reads_2=None,
-                      opts: TypingOptions = None, aligner=None, device=None):
+                      opts: TypingOptions = None, aligner=None, device=None,
+                      mesh: Mesh = None):
     """Device-program typing of one gene's read set.
 
     reads_*: [(name, seq)].  Returns GeneTypingResult — the same
     contract as pipeline.type_reads, computed by the production program
-    on `device` (default: the aligner's, else default_device()) with
-    host rescue of the punt mask.
+    over `mesh` with host rescue of the punt mask on `device`.  An
+    explicit `device`, or the aligner's, with no mesh is a mesh of one
+    shard there; with neither, default_mesh() (every visible card).  The
+    rescue runs on `device`, else the aligner's, else the mesh's first
+    shard.
     """
     opts = opts or TypingOptions()
     if device is None and aligner is not None:
         device = aligner.device
-    device = resolve_device(device)
+    if mesh is None:
+        mesh = default_mesh(device)
+    device = mesh.devices[0] if device is None else resolve_device(device)
     seqs_1 = [s for _, s in reads_1]
     seqs_2 = [s for _, s in (reads_2 or [])]
     max_len = max((len(s) for s in seqs_1 + seqs_2), default=100)
     read_len = max(100, ((max_len + 9) // 10) * 10)
-    st = _shared_sharded_typer(gene, opts, device, read_len)
+    st = _shared_sharded_typer(gene, opts, mesh, read_len)
 
     with TRACE.stage("device.encode"):
         c1 = st.encode(seqs_1)

@@ -71,11 +71,19 @@ def type_reads(gene: GeneRef, reads_1, reads_2=None, opts=None,
     K1, spell, count, host rescue with the device fold on K2, staged EM)
     when _take_device_path says so; otherwise the host-engine path:
     placement (K1) -> host verify -> haplotypes -> device fold (K2) ->
-    staged numpy EM.  `device` defaults to the aligner's device, else to
-    hgtpu_torch.default_device()."""
+    staged numpy EM.  `device` defaults to the aligner's device; with
+    neither, the production path runs over default_mesh() (every visible
+    card) and the host path on its first card, as hgtpu takes its
+    default mesh."""
     opts = opts or TypingOptions()
     if device is None and aligner is not None:
         device = aligner.device
+    mesh = None
+    if device is None:
+        from ..parallel.production import default_mesh
+
+        mesh = default_mesh()
+        device = mesh.devices[0]
     device = resolve_device(device)
     if opts.linear_typing:
         return type_reads_linear(gene, reads_1, reads_2, opts, device)
@@ -83,7 +91,7 @@ def type_reads(gene: GeneRef, reads_1, reads_2=None, opts=None,
         from ..parallel.production import type_reads_device
 
         return type_reads_device(gene, reads_1, reads_2, opts,
-                                 aligner=aligner, device=device)
+                                 aligner=aligner, device=device, mesh=mesh)
     aligner = aligner or GeneAligner(gene, num_editdist=opts.num_editdist,
                                      leftmost=opts.family == "codis",
                                      device=device)

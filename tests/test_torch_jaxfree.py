@@ -1,7 +1,9 @@
 """hgtpu_torch stands alone: a subprocess with jax and hgtpu blocked
 imports every module of the port, builds and simulates a tiny gene with
 the port's own db and sim, and types it on the host-engine path and on
-the production path, assembles and phases it (assembly=True), types a
+the production path (one shard, two shards, and a one-rank gloo world
+through parallel.multihost), assembles and phases it (assembly=True),
+types a
 3-gene family, searches an FM index, extracts reads against a genotype
 genome, runs the command line's simulation on a text database the port
 wrote and the toolkit's compare; and no source file of the port, nor
@@ -62,6 +64,23 @@ prob = st.call_pairs(st.encode([r.seq for r in r1]),
                      st.encode([r.seq for r in r2]))[0]
 assert gene.allele_names[int(prob.argmax())] == truth
 dryrun_multichip(1, device="cpu")
+# many devices: a 2-shard mesh, and a one-rank gloo world typing through
+# the multi-process merges
+import socket
+from hgtpu_torch.parallel import multihost, sharded
+dryrun_multichip(2, device="cpu")
+sock = socket.socket()
+sock.bind(("localhost", 0))
+port = sock.getsockname()[1]
+sock.close()
+assert multihost.init_distributed("localhost:%d" % port, 1, 0,
+                                  device="cpu") == (0, 1)
+res = multihost.type_reads_device_distributed(
+    gene, [(r.name, r.seq) for r in r1], [(r.name, r.seq) for r in r2],
+    TypingOptions(simulation=True, device_typing="on"),
+    mesh=sharded.make_mesh(2, "cpu"))
+assert res.prob[0][0] == truth, res.prob[:3]
+torch.distributed.destroy_process_group()
 # family typing through the router, an FM search, genome extraction
 import tempfile
 from synth import make_family

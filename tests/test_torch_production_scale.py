@@ -37,7 +37,8 @@ def test_production_threshold_coverage(indel_ref, interval, err):  # noqa: F811
 
 
 def test_production_exact_at_scale():
-    from hgtpu_torch.parallel.production import _shared_sharded_typer
+    from hgtpu_torch.parallel.production import (_shared_sharded_typer,
+                                                 default_mesh)
     from hgtpu_torch.typer.engine import TypingOptions
 
     spec = make_hla_scale_msa()
@@ -51,6 +52,6 @@ def test_production_exact_at_scale():
     assert_same_result(dev, want)
     assert_host_contract(dev, host, pair)
     # the scale panel spells in tiers (its hypothesis ceiling is above 8)
-    st = _shared_sharded_typer(carried(ref), TypingOptions(), torch.device("cpu"),
-                               100)
+    st = _shared_sharded_typer(carried(ref), TypingOptions(),
+                               default_mesh("cpu"), 100)
     assert st._fused_H > 8
