@@ -332,6 +332,10 @@ class GeneAligner:
         both = torch.from_numpy(
             np.concatenate([fwd, rc], axis=0)).to(self.device)
         pwm_ext = self._pwm_ext(max_len)
+        # launched K1 work, either branch: [2n, m*5] x [P1, m*5]^T
+        P1 = pwm_ext.shape[0] - max_len + 1
+        TRACE.count("flops.placement",
+                    2.0 * both.shape[0] * (max_len * 5) * P1)
         if self._use_scan:
             match_flat, bb_dev = self._scan_tables()
             lens2 = torch.from_numpy(

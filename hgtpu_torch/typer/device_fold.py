@@ -148,6 +148,17 @@ class DeviceFold:
             + [np.full(Fp * nlev - F * nlev, G * nlev, np.int32)])
 
         TRACE.add("type.count_fold.prep", _time.perf_counter() - _t_prep0)
+        # dispatched FLOPs for the bench's MFU, hgtpu's five terms: the
+        # deletion range-count product, the AND-reduce (u32 ops), the
+        # level and group segment sums, the class extraction
+        D = int(self.dc.del_links.shape[0])
+        W = int(self.dc.links_packed.shape[1])
+        TRACE.count("flops.device_fold",
+                    2.0 * Sp * D * A
+                    + Sp * K * W
+                    + Sp * A
+                    + float(Fp) * nlev * A
+                    + 3.0 * G * A * nlev)
 
         dc = self.dc
         LG = nlev * G

@@ -29,7 +29,8 @@ for m in pkgutil.walk_packages(hgtpu_torch.__path__, "hgtpu_torch."):
     importlib.import_module(m.name)
     walked.add(m.name)
 assert {"hgtpu_torch.devel." + m for m in
-        ("testdb", "golden", "campaign", "scaling")} <= walked, walked
+        ("testdb", "golden", "campaign", "scaling", "bench", "baseline_emu",
+         "punts", "profile")} <= walked, walked
 sys.path.insert(0, "tests")
 from synth import make_gene_msa
 from hgtpu_torch.db import build_gene_ref
@@ -194,8 +195,8 @@ def test_no_source_imports_jax():
     assert len(paths) > 30
     devel = os.path.join(ROOT, "hgtpu_torch", "devel")
     assert {os.path.join(devel, m + ".py") for m in
-            ("__init__", "testdb", "golden", "campaign", "scaling")} \
-        <= set(paths)
+            ("__init__", "testdb", "golden", "campaign", "scaling", "bench",
+             "baseline_emu", "punts", "profile")} <= set(paths)
     for path in paths:
         for name in _imports(path):
             # hgtpu_torch is the port itself; jax and hgtpu are refused
