@@ -39,7 +39,11 @@ hgtpu_torch.pipeline.type_reads and checks them phase by phase:
     campaign, and the shard sweep of sharded_place and sharded_count;
   * hgtpu's measurement tools on the port (hgtpu_torch.devel): the
     reference emulator's anchor on this host, the bench's three cells,
-    the punt probe and one profiled scale run.
+    the punt probe and one profiled scale run;
+  * the edge cases hgtpu's own tests pin (hgtpu_torch.devel.edges):
+    random-MSA, gap, variant-free, haplotype-window, partial-allele and
+    errored genes and the path-changing options typed on the card, the
+    kernels at degenerate shapes, and a BAM the port wrote.
 
 Phases:
 
@@ -195,6 +199,27 @@ Phases:
              counters non-zero), punts.punt_stats on the scale panel at one
              shard of the card equal to one CPU shard's, and one
              profile.profile scale run (the top 15 lines)
+  edges      hgtpu_torch.devel.edges' 16 cases (tests/test_fuzz.py's
+             four random-MSA genes, its gap and variant-free genes,
+             test_haplotype_paths.py's two-indel gene with a recombinant
+             pair, grafted partial alleles, errored reads, use_alts and
+             error_correction off, an excluded truth, germline SNPs,
+             type_primary_exons) typed through type_reads on the card
+             ("auto", one shard), the launches of K1, K2 and both DP
+             kernels counted per case (set to 0 just before, read just
+             after; K1, K2 and the bit DP must each launch): each result
+             equal field for field, class order included, to the port's
+             one-shard CPU production run (the host engine where the
+             options route there) and to its CPU host engine under the
+             contract (the two-indel gene's recombinant pair parts
+             hgtpu's own paths by one class; that difference is held as
+             it is); K1, K2 (slab and wide) and the bit DP launched
+             straight at the degenerate shapes (N, H, E of 0 and 1, P1
+             under one tile, W = 1, V+1 = 1) against their plain
+             versions, the empty ones launching nothing; the scale cell's
+             pairs as a BAM the port wrote (write_bam) and as FASTQ, each
+             through `python -m hgtpu_torch` on the card (--bamfile, -1
+             -2): the two reports equal but the argv line
   proof      launch counts of each path's runs (counts set to 0 just
              before the path, read just after): K1 > 0 on both paths, K2
              > 0 on the host path and on prod-scale whenever its rescue
@@ -219,7 +244,8 @@ records at the router's shape, "path": "family"), launches_assembly the
 assembly phase's scale run's, launches_mesh the mesh phase's 2-shard
 run's, launches_golden the five golden children's, launches_campaign the
 campaign phase's, launches_scaling the shard sweep's, launches_bench the
-bench's three cells' (warm-ups included), max_abs_err over
+bench's three cells' (warm-ups included), launches_edges the edge
+cases' (summed over the cases), max_abs_err over
 every shape checked.  "kernels" lists the kernels of the path;
 "off_path" the wide K2 variant, which no table of the path takes, and
 the warp DP kernel, which no budget of the path takes.
@@ -2133,6 +2159,255 @@ def bench_phase(big, big_gpu, big_ref, prod_res, truths, b1, b2, dev, counts,
     return launches
 
 
+def edges_bam_runs(big, b1, b2, work):
+    """The scale cell's pairs as a BAM the port writes (write_bam; mate 2
+    on the reverse strand, as an aligner stores it) and as FASTQ, the
+    scale gene placed on chr6 in a text database; `python -m hgtpu_torch
+    --bamfile` and `-1 -2` on them, both on the card, started together
+    as subprocesses.  Returns (Popens, their output directories)."""
+    import dataclasses
+
+    from hgtpu_torch.db import Catalog
+    from hgtpu_torch.db.catalog import export_text
+    from hgtpu_torch.utils.bam import write_bam
+    from hgtpu_torch.utils.dna import revcomp
+    from hgtpu_torch.utils.io import write_fastq
+
+    root = os.path.join(work, "edges")
+    os.makedirs(root, exist_ok=True)
+    placed = dataclasses.replace(big, chrom="chr6", chrom_left=20000,
+                                 chrom_right=20000 + len(big.backbone) - 1)
+    export_text(Catalog(family="hla", genes={"A": placed}),
+                os.path.join(root, "db", "hla"))
+    recs = []
+    span = len(big.backbone) - 250
+    for k, ((_, a), (_, b)) in enumerate(zip(b1, b2)):
+        pos = placed.chrom_left + (k * 3) % span
+        recs.append({"name": "rd%d" % k, "flag": 0x1 | 0x40,
+                     "rname": "chr6", "pos": pos, "cigar": [("M", len(a))],
+                     "seq": a, "qual": "I" * len(a),
+                     "tags": {"NH": ("i", 1)}})
+        recs.append({"name": "rd%d" % k, "flag": 0x1 | 0x80 | 0x10,
+                     "rname": "chr6", "pos": pos + 150,
+                     "cigar": [("M", len(b))], "seq": revcomp(b),
+                     "qual": "I" * len(b), "tags": {"NH": ("i", 1)}})
+    os.makedirs(os.path.join(root, "bam"), exist_ok=True)
+    os.makedirs(os.path.join(root, "fq"), exist_ok=True)
+    bam = os.path.join(root, "bam", "scale.bam")
+    write_bam(bam, [("chr6", placed.chrom_right + 1000)], recs)
+    fq = [os.path.join(root, "fq", "scale.%d.fq" % i) for i in (1, 2)]
+    write_fastq([("rd%d" % k, a) for k, (_, a) in enumerate(b1)], fq[0])
+    write_fastq([("rd%d" % k, b) for k, (_, b) in enumerate(b2)], fq[1])
+    env = {k: v for k, v in os.environ.items() if k != "HGTPU_TORCH_DEVICE"}
+    db = ["--base", "hla", "--ix-dir", os.path.join(root, "db")]
+    outs = [os.path.join(root, "out_bam"), os.path.join(root, "out_fq")]
+    procs = []
+    for argv, out in ((["--bamfile", bam], outs[0]),
+                      (["-1", fq[0], "-2", fq[1]], outs[1])):
+        log_f = open(out + ".log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "hgtpu_torch"] + db + argv
+            + ["--out-dir", out], cwd=ROOT, env=env, stdout=log_f,
+            stderr=subprocess.STDOUT), log_f))
+    return procs, outs, len(recs), os.path.getsize(bam)
+
+
+def edges_degenerate(dev):
+    """K1, K2 (slab and wide) and the bit DP launched straight at the
+    degenerate shapes of hgtpu_torch.devel.edges, each held against its
+    plain version on the same card tensors; an empty shape launches (and
+    counts) nothing, any other launches once."""
+    import numpy as np
+    import torch
+
+    from hgtpu_torch.devel import edges
+    from hgtpu_torch.ops.banded_dp import (BandedDPTables, banded_costs_bits,
+                                           banded_costs_plain)
+    from hgtpu_torch.ops.compat_kernel import (and_reduce_plain,
+                                               and_reduce_slab,
+                                               and_reduce_wide, k2_plan)
+    from hgtpu_torch.ops.placement_kernel import (placement_scores,
+                                                  placement_scores_plain)
+
+    def launched(fn, call, want_one, what):
+        before = fn.launches
+        out = call()
+        torch.cuda.synchronize()
+        if fn.launches - before != int(bool(want_one)):
+            raise AssertionError("edges: %s launched %d times, want %d"
+                                 % (what, fn.launches - before,
+                                    int(bool(want_one))))
+        return out
+
+    for n, m, P1 in edges.K1_SHAPES:
+        pwm, reads = (torch.from_numpy(x).to(dev)
+                      for x in edges.k1_operands(n, m, P1, seed=n + m + P1))
+        what = "K1 at N=%d m=%d P1=%d" % (n, m, P1)
+        got = launched(placement_scores,
+                       lambda: placement_scores(pwm, reads), n and m and P1,
+                       what)
+        want = placement_scores_plain(pwm, reads)
+        if got.shape != (n, P1) or not torch.equal(got, want):
+            raise AssertionError("edges: %s differs from the plain "
+                                 "version" % what)
+    for V1, W, H, K in edges.K2_SHAPES:
+        links, vars_ = (torch.from_numpy(x).to(dev) for x in
+                        edges.k2_operands(V1, W, H, K, seed=V1 + W + H + K))
+        want = and_reduce_plain(links, vars_)
+        ws = k2_plan(V1, W)[1]
+        for fn, call in (
+                (and_reduce_slab, lambda: and_reduce_slab(links, vars_, ws)),
+                (and_reduce_wide, lambda: and_reduce_wide(links, vars_))):
+            what = "K2 %s at V+1=%d W=%d H=%d K=%d" % (
+                fn.__name__, V1, W, H, K)
+            got = launched(fn, call, H and W, what)
+            if tuple(got.shape) != (H, W) or not torch.equal(got, want):
+                raise AssertionError("edges: %s differs from the plain "
+                                     "version" % what)
+    specs = edges.specs()
+    tables = {}
+    for name, E, W, budget in edges.DP_SHAPES:
+        if name not in tables:
+            tables[name] = BandedDPTables(edges.build(specs[name]), dev)
+        tab = tables[name]
+        gene = tab.gene
+        reads, lens, starts = (torch.from_numpy(np.ascontiguousarray(x))
+                               .to(dev) for x in
+                               edges.dp_operands(gene, E, W, seed=E + W))
+        what = "the bit DP at %s E=%d W=%d budget %d" % (name, E, W, budget)
+        cost, over = launched(
+            banded_costs_bits,
+            lambda: banded_costs_bits(tab.table, tab.planes, reads, lens,
+                                      starts, tab.P, budget, tab.del_lens,
+                                      tab.ins_lens), E, what)
+        want_c, want_o = banded_costs_plain(tab.table, reads, lens, starts,
+                                            tab.P, budget, tab.del_lens,
+                                            tab.ins_lens)
+        if not (torch.equal(cost, want_c) and torch.equal(over, want_o)):
+            raise AssertionError("edges: %s differs from the plain version"
+                                 % what)
+
+
+def edges_phase(big, b1, b2, dev, counts, reset, work, smi):
+    """hgtpu_torch.devel.edges' genes and cases on the card: each typed
+    through type_reads ("auto": the production path where the options
+    allow it, one shard) with the launches counted (set to 0 just before
+    each case, read just after), held exactly against the port's
+    one-shard CPU production run (the host engine where the options route
+    there) and under the host contract against its CPU host engine (the
+    two-indel gene's recombinant pair parts hgtpu's own paths: that
+    difference is held as it is); the kernels at degenerate shapes; the
+    scale cell through a BAM the port wrote."""
+    import dataclasses
+
+    import torch
+
+    from hgtpu_torch.devel import edges
+    from hgtpu_torch.parallel.production import (device_typing_supported,
+                                                 type_reads_device)
+    from hgtpu_torch.pipeline import type_reads
+    from hgtpu_torch.sim import simulate_reads
+    from hgtpu_torch.typer import TypingOptions
+
+    t_phase = time.perf_counter()
+    procs, outs, n_recs, bam_bytes = edges_bam_runs(big, b1, b2, work)
+    log("edges: the scale cell's %d pairs as a BAM written by the port "
+        "(%d records, %d bytes) and as FASTQ; `python -m hgtpu_torch "
+        "--bamfile` and `-1 -2` started on the card" % (len(b1), n_recs,
+                                                         bam_bytes))
+    specs = edges.specs()
+    genes = {}
+    total = None
+    reached = {}
+    for name, gene_name, reads, opts in edges.CASES:
+        if gene_name not in genes:
+            genes[gene_name] = edges.build(specs[gene_name])
+        gene = genes[gene_name]
+        R1, R2 = edges.case_reads(simulate_reads, gene, reads)
+        panel = edges.panel(gene, reads)
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = type_reads(panel, R1, R2, TypingOptions(simulation=True,
+                                                      **opts))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts()
+        total = launches if total is None else {
+            k: total[k] + launches[k] for k in total}
+        for k, v in launches.items():
+            if v:
+                reached.setdefault(k, []).append(name)
+        on = TypingOptions(simulation=True, device_typing="on", **opts)
+        production = device_typing_supported(on, True)
+        cpu = (type_reads_device(panel, R1, R2, on, device="cpu")
+               if production else
+               type_reads(panel, R1, R2, TypingOptions(simulation=True,
+                                                       **opts),
+                          device="cpu"))
+        if dataclasses.asdict(got) != dataclasses.asdict(cpu):
+            raise AssertionError("edges %s: the card's result differs from "
+                                 "the CPU's" % name)
+        same_result(got, cpu, "edges %s" % name)
+        host = type_reads(panel, R1, R2, TypingOptions(
+            simulation=True, device_typing="off", **opts), device="cpu")
+        if name == "two-indels":
+            diff = {k: host.cmpt.get(k, 0) - got.cmpt.get(k, 0)
+                    for k in set(host.cmpt) | set(got.cmpt)
+                    if host.cmpt.get(k, 0) != got.cmpt.get(k, 0)}
+            if diff != {"X*A": -1, "X*A-X*C": 1}:
+                raise AssertionError("edges two-indels: production and "
+                                     "host engine part by %s" % diff)
+        elif not edges.host_contract(got, host):
+            raise AssertionError("edges %s: the card's result leaves the "
+                                 "host contract" % name)
+        log("edges: %s A=%d V=%d P=%d, %d pairs, %s path, top %s; equals "
+            "the CPU %s run exactly and the host engine under the contract"
+            "%s; launches %s; wall %.3f s"
+            % (name, panel.n_alleles, panel.n_vars, len(panel.backbone),
+               len(R1), "production" if production else "host-engine",
+               [(a, round(p, 4)) for a, p in got.prob[:2]],
+               "one-shard production" if production else "host-engine",
+               " (but the recombinant pair, as in hgtpu)"
+               if name == "two-indels" else "",
+               {k: v for k, v in launches.items() if v}, wall))
+    for k in ("placement_scores", "and_reduce_slab", "banded_dp_bits"):
+        if not total[k]:
+            raise AssertionError("edges: %s never launched over the edge "
+                                 "genes: %s" % (k, total))
+    log("edges: launches over the cases %s; reached by %s" % (total,
+                                                               reached))
+    edges_degenerate(dev)
+    log("edges: K1 (%d shapes), K2 slab and wide (%d each) and the bit DP "
+        "(%d) at the degenerate shapes equal their plain versions; the "
+        "empty ones launched nothing" % (len(edges.K1_SHAPES),
+                                         len(edges.K2_SHAPES),
+                                         len(edges.DP_SHAPES)))
+    t0 = time.perf_counter()
+    for p, log_f in procs:
+        rc = p.wait(timeout=600)
+        log_f.close()
+        if rc != 0:
+            raise AssertionError("edges: a `python -m hgtpu_torch` run "
+                                 "exited %d (%s)" % (rc, log_f.name))
+    waited = time.perf_counter() - t0
+    reports = []
+    for out in outs:
+        names = [f for f in os.listdir(out) if f.endswith(".report")]
+        if len(names) != 1:
+            raise AssertionError("edges: %s holds %s" % (out, names))
+        reports.append(report_lines(os.path.join(out, names[0])))
+    if reports[0] != reports[1] \
+            or not any("1 ranked" in x for x in reports[0]):
+        raise AssertionError("edges: the BAM run's report differs from the "
+                             "FASTQ run's")
+    log("edges: the BAM run's report equals the FASTQ run's line for line "
+        "(but the argv line; %d lines; waited %.1f s for them after the "
+        "cases); phase wall %.1f s; %s"
+        % (len(reports[0]), waited, time.perf_counter() - t_phase, smi))
+    return total
+
+
 def linear_sam_phase(cat, truths, per_gene, dev, sam_path, n_pairs=1000):
     """type_reads_linear on gene A (n_pairs of its truth pairs) and
     type_from_sam of gene A's family SAM, on `dev`, each equal to the
@@ -2761,7 +3036,12 @@ def main():
                                  runs["prod-scale"][0], truths, b1, b2, dev,
                                  counts, reset, work, smi)
 
-    # ---- 14. proof of path ---- #
+    # ---- 14. hgtpu's edge cases: the edge genes on the card (launches
+    # counted per case), the kernels at degenerate shapes, a BAM the
+    # port wrote ---- #
+    edges_launches = edges_phase(big, b1, b2, dev, counts, reset, work, smi)
+
+    # ---- 15. proof of path ---- #
     for rec in kernels + off_path:
         rec["launches"] = (fam_launches if rec.get("path") == "family"
                            else prod_launches)[rec["name"]]
@@ -2771,6 +3051,7 @@ def main():
         rec["launches_campaign"] = campaign_launches[rec["name"]]
         rec["launches_scaling"] = scaling_launches[rec["name"]]
         rec["launches_bench"] = bench_launches[rec["name"]]
+        rec["launches_edges"] = edges_launches[rec["name"]]
     for name in ("placement_scores", "and_reduce_slab", "banded_dp_bits"):
         if host_launches[name] <= 0:
             raise AssertionError("%s never launched on the host-engine path"

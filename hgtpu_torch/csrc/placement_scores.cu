@@ -313,17 +313,16 @@ placement_scores_kernel(const float* __restrict__ pwm, int n_rows,
 // pwm: [n_rows, 5] float32, reads: [N, m] int8 with m % 16 == 0 and a
 // 16-byte-aligned base, out: [N, P1] float32 with P1 = n_rows - m + 1.
 // Returns the cudaError_t of the launch (cudaErrorInvalidValue for an
+// empty problem, which the wrapper answers without a launch, or for an
 // unsupported m or alignment).
 extern "C" int hgtpu_torch_placement_scores(const float* pwm, int n_rows,
                                             const int8_t* reads, int N, int m,
                                             float* out, int P1,
                                             void* stream) {
-  if (N == 0 || P1 <= 0) return 0;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (m == 0)
-    return (int)cudaMemsetAsync(out, 0, (size_t)N * P1 * sizeof(float), st);
-  if (m % 16 != 0 || (uintptr_t)reads % 16 != 0)
+  if (N <= 0 || m <= 0 || P1 <= 0 || m % 16 != 0 ||
+      (uintptr_t)reads % 16 != 0)
     return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
   const size_t smem = smem_bytes(m);
   cudaError_t e = cudaFuncSetAttribute(
       placement_scores_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

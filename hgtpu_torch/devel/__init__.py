@@ -15,6 +15,9 @@
   punts      punt and exclusion rates, causes and tiers of count_classes
              (devel/measure_punts.py)
   profile    cProfile of one warm scale typing run (devel/profile_scale.py)
+  edges      the edge-case genes and read sets hgtpu's tests pin
+             (tests/test_fuzz.py, test_haplotype_paths.py, ...), as data;
+             the kernels' degenerate shapes
 
 Each runs on the card unless asked for the CPU (``device="cpu"`` or
 ``HGTPU_TORCH_DEVICE=cpu``; profile: ``--cpu``), and imports nothing of

@@ -30,7 +30,8 @@ its table so, and ``and_reduce_slab`` pads any other table first.
 
 Each wrapper counts its own launches.  ``and_reduce`` and both variants
 take the plain version only for CPU tensors; for CUDA tensors they launch
-a kernel or raise.
+a kernel or raise.  An empty result (H = 0 or W = 0) launches nothing and
+counts nothing.
 """
 from __future__ import annotations
 
@@ -127,8 +128,10 @@ def _launch(fn, links, vars_, out_pitch, *extra):
                            % links.device)
     V1, W = links.shape
     H, K = vars_.shape
-    lib = cuda_lib.load()
     out = torch.empty((H, out_pitch), dtype=torch.int32, device=links.device)
+    if H == 0 or W == 0:
+        return out[:, :W]               # nothing to launch, nor to count
+    lib = cuda_lib.load()
     with torch.cuda.device(links.device):
         err = getattr(lib, "hgtpu_torch_" + fn.__name__)(
             links.data_ptr(), V1, W, links.stride(0), vars_.data_ptr(), H, K,

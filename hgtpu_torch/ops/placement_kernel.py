@@ -18,7 +18,11 @@ through bf16 as the Pallas operands were, and codes outside [0, 5) score
 for 0/1 PWMs.
 
 ``placement_scores`` takes the plain version only for CPU tensors; for
-CUDA tensors it launches the kernel or raises.  The kernel reads the
+CUDA tensors it launches the kernel or raises.  With no read (N = 0), a
+read width of 0 or no diagonal (P1 = 0: one PWM row fewer than the read
+width, where hgtpu's product is [N, 0]) there is nothing to compute: it
+returns the zero scores, launches nothing and counts no launch; the C
+launcher refuses those shapes.  The kernel reads the
 codes in 16-byte copies along rows of 16-code chunks: a read width m
 that is not a multiple of 16 is padded with code 5 (scores 0) and the PWM
 with as many zero rows, and codes whose base address is not 16-byte
@@ -43,8 +47,9 @@ def _check(pwm_ext, reads):
     if pwm_ext.dim() != 2 or pwm_ext.shape[1] != 5 or reads.dim() != 2:
         raise ValueError("want pwm_ext [P+2m, 5] and reads [N, m], got %s, %s"
                          % (tuple(pwm_ext.shape), tuple(reads.shape)))
-    if pwm_ext.shape[0] < reads.shape[1]:
-        raise ValueError("pwm_ext has fewer rows than the read width")
+    if pwm_ext.shape[0] < reads.shape[1] - 1:
+        raise ValueError("pwm_ext has fewer rows than the read width less "
+                         "one")
     if not (pwm_ext.is_contiguous() and reads.is_contiguous()):
         raise ValueError("pwm_ext and reads must be contiguous")
 
@@ -54,6 +59,8 @@ def placement_scores_plain(pwm_ext: torch.Tensor,
     """The same scores in plain torch: hgtpu's im2col product."""
     n, m = reads.shape
     P1 = pwm_ext.shape[0] - m + 1
+    if P1 == 0:
+        return torch.zeros((n, 0), dtype=torch.float32, device=reads.device)
     pwm = pwm_ext.to(torch.bfloat16).to(torch.float32)
     classes = torch.arange(5, device=reads.device)
     onehot = (reads.long()[:, :, None] == classes).to(torch.float32)
@@ -88,6 +95,10 @@ def placement_scores(pwm_ext: torch.Tensor,
                            % reads.device)
     n = reads.shape[0]
     P1 = pwm_ext.shape[0] - reads.shape[1] + 1
+    if n == 0 or reads.shape[1] == 0 or P1 == 0:
+        # no read, no base or no diagonal: every score is 0, and no kernel
+        # launches
+        return torch.zeros((n, P1), dtype=torch.float32, device=reads.device)
     pwm_ext, reads = k16_operands(pwm_ext, reads)
     lib = cuda_lib.load()
     out = torch.empty((n, P1), dtype=torch.float32, device=reads.device)

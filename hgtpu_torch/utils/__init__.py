@@ -1,1 +1,1 @@
-from .dna import encode_seq, decode_seq, revcomp, BASES
+from .dna import encode_seq, decode_seq, revcomp, revcomp_encoded, BASES

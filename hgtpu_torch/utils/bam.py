@@ -1,5 +1,4 @@
-# Copy of hgtpu/utils/bam.py, without write_bam and its record encoder
-# (no caller here).
+# Copy of hgtpu/utils/bam.py.
 """Pure-Python BAM I/O (BGZF container + BAM record codec).
 
 The reference shells out to `samtools view/index` for every BAM
@@ -8,7 +7,7 @@ module replaces that process boundary with an in-process reader/writer:
 
 - BGZF is a sequence of gzip members with a BC/BSIZE extra subfield;
   Python's gzip module reads multi-member streams transparently, so
-  reading needs no special casing.  BgzfWriter emits spec-compliant BGZF
+  reading needs no special casing.  Writing emits spec-compliant BGZF
   blocks (<= 64 KiB payload, BSIZE extra field, 28-byte EOF marker) so
   produced files interoperate with samtools/pysam.
 - Region queries run as a linear scan with a refID/coordinate filter
@@ -28,6 +27,7 @@ import zlib
 
 _CIGAR_OPS = "MIDNSHP=X"
 _SEQ_NT = "=ACMGRSVTWYHKDBN"
+_NT_CODE = {c: i for i, c in enumerate(_SEQ_NT)}
 _BGZF_EOF = bytes.fromhex(
     "1f8b08040000000000ff0600424302001b0003000000000000000000")
 
@@ -77,8 +77,63 @@ class BgzfWriter:
 
 
 # --------------------------------------------------------------------- #
-# record decoding
+# record codec
 # --------------------------------------------------------------------- #
+def _encode_record(rec, ref_ids):
+    name = rec["name"].encode() + b"\x00"
+    cigar = rec.get("cigar") or []
+    seq = rec.get("seq", "")
+    qual = rec.get("qual", "")
+    l_seq = len(seq)
+    packed = bytearray((l_seq + 1) // 2)
+    for i, c in enumerate(seq):
+        code = _NT_CODE.get(c.upper(), 15)
+        packed[i // 2] |= code << (4 if i % 2 == 0 else 0)
+    q = bytes((min(93, ord(c) - 33) for c in qual)) if qual \
+        else b"\xff" * l_seq
+    refid = ref_ids.get(rec.get("rname", "*"), -1)
+    nrefid = ref_ids.get(rec.get("rnext", "*"), -1)
+    pos = rec.get("pos", -1)
+    body = struct.pack(
+        "<iiBBHHHiiii", refid, pos, len(name),
+        rec.get("mapq", 0), rec.get("bin", 0), len(cigar),
+        rec.get("flag", 0), l_seq, nrefid, rec.get("pnext", -1),
+        rec.get("tlen", 0))
+    body += name
+    for op, ln in cigar:
+        body += struct.pack("<I", (ln << 4) | _CIGAR_OPS.index(op))
+    body += bytes(packed) + q
+    for tag, (ttype, val) in rec.get("tags", {}).items():
+        body += tag.encode() + ttype.encode()
+        if ttype == "i":
+            body += struct.pack("<i", val)
+        elif ttype == "A":
+            body += val.encode()
+        elif ttype == "f":
+            body += struct.pack("<f", val)
+        elif ttype == "Z":
+            body += val.encode() + b"\x00"
+        else:
+            raise ValueError("unsupported tag type %r" % ttype)
+    return struct.pack("<i", len(body)) + body
+
+
+def write_bam(path, refs, records, header_text=""):
+    """refs: [(name, length)]; records: dicts as produced by read_bam
+    (pos 0-based; cigar [(op, len)]; tags {tag: (type, value)})."""
+    ref_ids = {name: i for i, (name, _l) in enumerate(refs)}
+    with BgzfWriter(path) as w:
+        text = header_text.encode()
+        w.write(b"BAM\x01" + struct.pack("<i", len(text)) + text)
+        w.write(struct.pack("<i", len(refs)))
+        for name, length in refs:
+            nm = name.encode() + b"\x00"
+            w.write(struct.pack("<i", len(nm)) + nm
+                    + struct.pack("<i", length))
+        for rec in records:
+            w.write(_encode_record(rec, ref_ids))
+
+
 def _parse_tags(buf):
     tags = {}
     i = 0

@@ -1,4 +1,4 @@
-# Copy of hgtpu/utils/dna.py, without revcomp_encoded (no caller here).
+# Copy of hgtpu/utils/dna.py.
 """DNA sequence encoding utilities.
 
 Bases are int8 codes A=0 C=1 G=2 T=3, N=4; '.' (gap / deleted) = 5.  All
@@ -38,3 +38,11 @@ def decode_seq(codes: np.ndarray) -> str:
 
 def revcomp(seq: str) -> str:
     return "".join(_COMP.get(c, c) for c in reversed(seq))
+
+
+def revcomp_encoded(codes: np.ndarray) -> np.ndarray:
+    """Reverse complement of int8-encoded codes (N and '.' map to themselves)."""
+    out = codes[::-1].copy()
+    acgt = out < 4
+    out[acgt] = 3 - out[acgt]
+    return out

@@ -1,4 +1,4 @@
-# Copy of hgtpu/utils/io.py, without write_fasta_reads (no caller here).
+# Copy of hgtpu/utils/io.py.
 """Sequence file I/O: FASTA/FASTQ readers and writers (gzip-aware).
 
 Replaces the reference's ad-hoc parsing and gzip subprocess pipes
@@ -39,3 +39,9 @@ def write_fastq(reads, path):
     with _open(path, "wt") as f:
         for name, seq in reads:
             f.write("@%s\n%s\n+\n%s\n" % (name, seq, "I" * len(seq)))
+
+
+def write_fasta_reads(reads, path):
+    with _open(path, "wt") as f:
+        for name, seq in reads:
+            f.write(">%s\n%s\n" % (name, seq))

@@ -1,4 +1,4 @@
-# Copy of hgtpu/validate.py, without check_allele_validity (no caller here).
+# Copy of hgtpu/validate.py.
 """Opt-in runtime sanity checks.
 
 Equivalent of hisatgenotype_validation_check.py (368 LoC), gated the same
@@ -72,6 +72,13 @@ def check_amb_uniqueness(cmp_list, cmp_left, cmp_right, left_alts,
     assert len(set(right_alts)) == len(right_alts)
     assert 0 <= cmp_left <= len(cmp_list)
     assert cmp_right < len(cmp_list)
+
+
+def check_allele_validity(gene, seqs_by_name):
+    """Allele dictionary equality vs the sequences file
+    (ref: check_allele_validity:357)."""
+    for name, seq in seqs_by_name.items():
+        assert gene.allele_seq(name) == seq, name
 
 
 def allele_exon_seq(gene, name):

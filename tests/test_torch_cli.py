@@ -33,12 +33,13 @@ from hgtpu.db.catalog import export_text as jax_export_text
 from hgtpu.db.genome import build_genotype_genome as jax_build_genome
 from hgtpu.pipeline import type_family as jax_type_family
 from hgtpu.sim import simulate_reads
-from hgtpu.utils.bam import write_bam
+from hgtpu.utils.bam import write_bam as jax_write_bam
 from hgtpu.utils.dna import revcomp
 from hgtpu.utils.io import write_fastq
 import hgtpu_torch
 import hgtpu_torch.cli.main as cli
 import hgtpu_torch.cli.toolkit as toolkit
+from hgtpu_torch.utils.bam import write_bam
 from tests.synth import make_family, make_gene_msa, make_nuc_msa
 from tests.test_torch_textdb import _write_msf
 
@@ -86,8 +87,14 @@ def inputs(tmp_path_factory):
                      "rname": "chr6", "pos": pos + 150,
                      "cigar": [("M", len(b.seq))], "seq": revcomp(b.seq),
                      "qual": "I" * len(b.seq), "tags": {"NH": ("i", 1)}})
+    # hgtpu's CLI reads the BAM hgtpu wrote, the port's the one it wrote
+    # (same name: the report is named after it)
     p["bam"] = str(root / "sample.bam")
-    write_bam(p["bam"], [("chr6", 60000)], recs)
+    os.makedirs(str(root / "port"))
+    p["bam_port"] = str(root / "port" / "sample.bam")
+    jax_write_bam(p["bam"], [("chr6", 60000)], recs)
+    write_bam(p["bam_port"], [("chr6", 60000)], recs)
+    assert open(p["bam_port"], "rb").read() == open(p["bam"], "rb").read()
     # a three-gene family on chrS (the panel router), its genome
     fam = make_family(genes=("A", "B", "C"), n_alleles=8, length=900,
                       seed=13)
@@ -168,12 +175,12 @@ def _report_lines(path):
     return lines[:i + 1] + lines[i + 2:]
 
 
-def _run_both(argv, out):
-    """hgtpu's and the port's CLI in process; (rc, rc, hgtpu's dir,
-    the port's dir)."""
+def _run_both(argv, out, port_argv=None):
+    """hgtpu's and the port's CLI in process (the port's on `port_argv`
+    when given); (rc, rc, hgtpu's dir, the port's dir)."""
     h, t = str(out / "h"), str(out / "t")
     rc_h = jax_cli.main(argv + ["--out-dir", h])
-    rc_t = cli.main(argv + ["--out-dir", t], device="cpu")
+    rc_t = cli.main((port_argv or argv) + ["--out-dir", t], device="cpu")
     return rc_h, rc_t, h, t
 
 
@@ -200,7 +207,10 @@ def _assert_same_files(h, t, suffix):
 
 @pytest.mark.parametrize("mode", sorted(MODES))
 def test_reports_equal_hgtpu(inputs, tmp_path, mode):
-    rc_h, rc_t, h, t = _run_both(MODES[mode](inputs), tmp_path)
+    port_argv = None
+    if mode == "bamfile":                   # the BAM the port wrote
+        port_argv = _gene(inputs) + ["--bamfile", inputs["bam_port"]]
+    rc_h, rc_t, h, t = _run_both(MODES[mode](inputs), tmp_path, port_argv)
     assert rc_h == rc_t == 0
     names = _assert_same_reports(h, t)
     text = open(os.path.join(t, names[0])).read()

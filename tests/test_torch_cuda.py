@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from hgtpu_torch.devel import edges
 from hgtpu_torch.ops.compat_kernel import (and_reduce, and_reduce_plain,
                                            and_reduce_slab, and_reduce_wide,
                                            k2_plan)
@@ -529,3 +530,61 @@ def test_fm_search_card_equals_cpu(cuda, checkpoint, n):
     c_lo, c_hi = cpu.search_batch(q)
     assert np.array_equal(lo, c_lo) and np.array_equal(hi, c_hi)
     assert (hi > lo).sum() >= 2000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,P1", edges.K1_SHAPES)
+def test_k1_kernel_at_degenerate_shapes(cuda, n, m, P1):
+    """No read, one read, one diagonal and none, less than one 128-wide
+    tile, a read width of 1 and of 0: equal to the plain version; an
+    empty problem launches (and counts) nothing."""
+    pwm, reads = (torch.from_numpy(x).to(cuda) for x in
+                  edges.k1_operands(n, m, P1, seed=n + m + P1))
+    before = placement_scores.launches
+    got = placement_scores(pwm, reads)
+    torch.cuda.synchronize()
+    assert placement_scores.launches - before == int(bool(n and m and P1))
+    assert got.shape == (n, P1)
+    assert torch.equal(got, placement_scores_plain(pwm, reads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V1,W,H,K", edges.K2_SHAPES)
+def test_k2_kernels_at_degenerate_shapes(cuda, V1, W, H, K):
+    """H of 0 and 1, W = 1, V+1 = 1, K of 0 and 1: both variants equal
+    the plain version; an empty result launches nothing."""
+    links, vars_ = (torch.from_numpy(x).to(cuda) for x in
+                    edges.k2_operands(V1, W, H, K, seed=V1 + W + H + K))
+    want = and_reduce_plain(links, vars_)
+    for fn, call in ((and_reduce_slab, lambda: and_reduce_slab(
+                          links, vars_, k2_plan(V1, W)[1])),
+                     (and_reduce_wide, lambda: and_reduce_wide(links,
+                                                               vars_))):
+        before = fn.launches
+        got = call()
+        torch.cuda.synchronize()
+        assert fn.launches - before == int(bool(H and W)), fn.__name__
+        assert tuple(got.shape) == (H, W)
+        assert torch.equal(got, want), fn.__name__
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,E,W,budget", edges.DP_SHAPES)
+def test_dp_bit_kernel_at_degenerate_shapes(cuda, name, E, W, budget):
+    """E of 0 and 1, reads one base wide, a 104-bp gene and a gene with
+    no variant: cost and over equal the plain version's."""
+    from hgtpu_torch.ops.banded_dp import (BandedDPTables, banded_costs_bits,
+                                           banded_costs_plain)
+
+    tab = BandedDPTables(edges.build(edges.specs()[name]), cuda)
+    reads, lens, starts = (torch.from_numpy(np.ascontiguousarray(x))
+                           .to(cuda) for x in
+                           edges.dp_operands(tab.gene, E, W, seed=E + W))
+    args = (tab.table, reads, lens, starts, tab.P, budget, tab.del_lens,
+            tab.ins_lens)
+    before = banded_costs_bits.launches
+    cost, over = banded_costs_bits(tab.table, tab.planes, *args[1:])
+    torch.cuda.synchronize()
+    assert banded_costs_bits.launches - before == int(bool(E))
+    want_c, want_o = banded_costs_plain(*args)
+    assert torch.equal(cost, want_c) and torch.equal(over, want_o)

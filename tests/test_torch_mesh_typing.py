@@ -6,9 +6,10 @@ tests/test_torch_mesh.py's).
                    the overflow refetch of the full-resolution leaves,
                    sliced by shard: equal to hgtpu's at 2 and 8 shards.
   type_reads_device  over make_mesh(n, "cpu"): equal field for field to
-                   the port's one-shard run and to hgtpu's run
-                   (tests/test_torch_production.py's contract), paired at
-                   2 and 8 shards, single-end at 2.
+                   the port's one-shard run and to hgtpu's run over a
+                   mesh of as many devices (the class order depends on
+                   the shard count; tests/test_torch_production.py's
+                   contract), paired at 2 and 8 shards, single-end at 2.
   call_pairs, __call__, call_allele  equal hgtpu's at the same mesh:
                    totals, n_used and punt exact, prob within 2e-4 with
                    the same top allele (as tests/test_torch_device_em.py);
@@ -25,7 +26,8 @@ import torch
 
 from hgtpu.parallel import sharded as jax_sharded
 from hgtpu.parallel.e2e import ShardedTyper as JaxTyper
-from hgtpu.pipeline import type_reads as jax_type_reads
+from hgtpu.parallel.production import \
+    type_reads_device as jax_type_reads_device
 from hgtpu.sim import simulate_reads
 from hgtpu.typer.engine import TypingOptions as JaxOptions
 from hgtpu_torch.parallel.e2e import ShardedTyper
@@ -69,7 +71,8 @@ def test_type_reads_device_on_mesh(indel_ref, n, paired):  # noqa: F811
     got = type_reads_device(gene, R1, R2, TypingOptions(**kw),
                             mesh=make_mesh(n, "cpu"))
     one = type_reads_device(gene, R1, R2, TypingOptions(**kw), device="cpu")
-    want = jax_type_reads(indel_ref, R1, R2, JaxOptions(**kw))
+    want = jax_type_reads_device(indel_ref, R1, R2, JaxOptions(**kw),
+                                 mesh=jax_sharded.make_mesh(n))
     assert_same_result(got, one)
     assert_same_result(got, want)
 

@@ -4,7 +4,12 @@ hgtpu_torch.pipeline.type_reads(..., device_typing="on") runs the port's
 production program (place on K1's plain version here, spell, host pileup
 merge, count, host rescue with the device fold, staged EM).  Its
 GeneTypingResult must equal hgtpu's production result field for field,
-cmpt dict order included, and the port's host path under the contract of
+cmpt dict order included, at hgtpu's mesh size: hgtpu's type_reads runs
+over default_mesh(), one shard per JAX device (8 under
+tests/conftest.py), and the order of the classes depends on the shard
+count in both packages, so the port runs over as many CPU shards
+(``port_production``).  It must also equal the port's host path under
+the contract of
 tests/test_production.py (cmpt and exon cmpt exact, read and pair counts
 exact, prob within 1e-9 with the same ranking).  The cases are the
 analogs of that file's error-free, errored and single-end tests; its
@@ -14,6 +19,7 @@ _take_device_path with CUDA in place of a TPU.
 """
 import dataclasses
 
+import jax
 import pytest
 import torch
 
@@ -21,6 +27,7 @@ from hgtpu.pipeline import type_reads as jax_type_reads
 from hgtpu.sim import simulate_reads
 from hgtpu.typer.engine import TypingOptions as JaxOptions
 from hgtpu_torch.parallel import production
+from hgtpu_torch.parallel.sharded import make_mesh
 from hgtpu_torch.pipeline import type_reads
 from hgtpu_torch.pipeline.genotype import _take_device_path
 from hgtpu_torch.typer.engine import TypingOptions
@@ -62,12 +69,29 @@ def assert_host_contract(dev, host, alleles):
         assert dev.prob[0][1] > 0.9999
 
 
+def hgtpu_mesh():
+    """The port's mesh of as many CPU shards as hgtpu's default_mesh()
+    has devices."""
+    return make_mesh(len(jax.devices()), "cpu")
+
+
+def port_production(gene, R1, R2, opts):
+    """The port's type_reads at hgtpu's mesh size: type_reads_device over
+    hgtpu_mesh() where type_reads routes to the production path, else
+    type_reads itself (the host engine, on one device in both
+    packages)."""
+    if _take_device_path(opts, R2 is not None, torch.device("cpu")):
+        return production.type_reads_device(gene, R1, R2, opts,
+                                            mesh=hgtpu_mesh())
+    return type_reads(gene, R1, R2, opts, device="cpu")
+
+
 def three_ways(ref, R1, R2, **kw):
     """(port production, hgtpu production, port host) results; the port
-    types hgtpu's gene ``ref`` carried across."""
+    types hgtpu's gene ``ref`` carried across, over hgtpu's mesh size."""
     gene = carried(ref)
-    dev = type_reads(gene, R1, R2,
-                     TypingOptions(device_typing="on", **kw), device="cpu")
+    dev = port_production(gene, R1, R2,
+                          TypingOptions(device_typing="on", **kw))
     want = jax_type_reads(ref, R1, R2,
                           JaxOptions(device_typing="on", **kw))
     host = type_reads(gene, R1, R2,
@@ -113,6 +137,38 @@ def test_production_single_end(indel_ref):  # noqa: F811
     assert dev.prob[0][0] == host.prob[0][0] == t_indel
     assert dev.cmpt == host.cmpt
     assert dev.num_reads == host.num_reads
+
+
+@pytest.fixture(scope="module")
+def fuzz1():
+    """tests/test_fuzz.py's second random gene of random.Random(99) at
+    3-12 alleles and 400-900 bp (hgtpu_torch.devel.edges): 8 alleles,
+    19 variants, 694 bp."""
+    from hgtpu.db import build_gene_ref
+
+    from hgtpu_torch.devel import edges
+
+    spec = edges.specs()["fuzz1"]
+    return build_gene_ref(*spec["args"], **spec["kw"])[0]
+
+
+@pytest.mark.parametrize("opts", [{}, dict(remove_low_abundance_alleles=False)])
+def test_production_equals_hgtpu_at_its_mesh_size(fuzz1, opts):
+    """On this gene the classes come out in another order on one shard
+    than on eight, in both packages: the port equals hgtpu only at
+    hgtpu's mesh size, and its one-shard run differs from it."""
+    alleles = fuzz1.allele_names[:2]
+    R1, R2 = pairs(fuzz1, alleles, 1.0, 7, 2)
+    dev, want, host = three_ways(fuzz1, R1, R2, simulation=True, **opts)
+    assert_same_result(dev, want)
+    assert_host_contract(dev, host, [a for a, _ in host.prob[:2]])
+    assert {a for a, _ in dev.prob[:2]} == set(alleles)
+    one = production.type_reads_device(
+        carried(fuzz1), R1, R2,
+        TypingOptions(device_typing="on", simulation=True, **opts),
+        device="cpu")
+    assert one.cmpt == want.cmpt
+    assert list(one.cmpt.items()) != list(want.cmpt.items())
 
 
 # ---- routing ---- #

@@ -148,8 +148,12 @@ def _case_fastx(tmp_path):
             [(n, s) for n, s in reads]
     for suffix in ("fa", "fa.gz"):
         path = str(tmp_path / ("r." + suffix))
+        own = str(tmp_path / ("t." + suffix))
         want.write_fasta_reads(reads, path)
-        assert got.read_fastx(path) == want.read_fastx(path)
+        got.write_fasta_reads(reads, own)
+        opener = gzip.open if suffix.endswith(".gz") else open
+        assert opener(own, "rb").read() == opener(path, "rb").read()
+        assert got.read_fastx(own) == want.read_fastx(path)
     empty = tmp_path / "e.fq"
     empty.write_text("")
     assert got.read_fastx(str(empty)) == want.read_fastx(str(empty)) == []
