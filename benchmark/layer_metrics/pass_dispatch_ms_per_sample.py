@@ -1,0 +1,14 @@
+"""parallel.e2e: the host issuing the place, spell and count passes'
+device programs (TRACE stage pass.dispatch), ms per sample, from the
+program's own calls over the window."""
+
+
+def read(ctx):
+    from hgtpu_torch.utils.trace import TRACE
+
+    calls = getattr(TRACE, "calls", None)   # a TRACE of flat totals only
+    if calls is None or not ctx["samples"]:
+        return None
+    s = sum(c["stages"]["pass.dispatch"]["s"] for c in calls(*ctx["window"])
+            if "pass.dispatch" in c["stages"])
+    return 1e3 * s / ctx["samples"] if s else None

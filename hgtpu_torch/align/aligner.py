@@ -16,7 +16,7 @@ import torch
 
 from ..db.catalog import GeneRef
 from ..utils.dna import decode_seq
-from ..utils.trace import TRACE
+from ..utils.trace import TRACE, to_host
 from .. import resolve_device
 from ..ops.placement import (backbone_pwm, encode_reads,
                              place_batch_packed, place_scan_batch)
@@ -228,12 +228,12 @@ class GeneAligner:
             if len(handles) > 1 and all(
                     h.shape[1] == h0.shape[1] and h.dtype == h0.dtype
                     for h in handles):
-                buf = torch.cat(handles, dim=0).cpu().numpy()
+                buf = to_host(torch.cat(handles, dim=0))
                 sizes = np.cumsum([0] + [h.shape[0] for h in handles])
                 fetched = [buf[sizes[i]:sizes[i + 1]]
                            for i in range(len(handles))]
             else:
-                fetched = [h.cpu().numpy() for h in handles]
+                fetched = [to_host(h) for h in handles]
         states = []
         with TRACE.stage("place.resolve"):
             for (gi, chunk_ids, chunk, pad, placed), host_out in zip(
@@ -452,20 +452,23 @@ class GeneAligner:
         ~E list/array allocations for entries that are never verified.
         get_codes(idxs) materializes exactly the requested entries."""
         flat_starts, flat_meta = [], []
-        for i, order, m in st["pending"]:
-            o_rc, codes, cand_p, cand_s = order[rank]
-            for s, cf, ln in self._proposal_meta(cand_p, cand_s, m):
-                flat_starts.append(s)
-                flat_meta.append((i, o_rc, cf, ln))
+        with TRACE.stage("verify.prep.proposals"):
+            for i, order, m in st["pending"]:
+                o_rc, codes, cand_p, cand_s = order[rank]
+                for s, cf, ln in self._proposal_meta(cand_p, cand_s, m):
+                    flat_starts.append(s)
+                    flat_meta.append((i, o_rc, cf, ln))
         if not flat_meta:
             return None
-        lbs = self._lb_values_meta(st, flat_meta, flat_starts)
-        keep = lbs <= self.num_editdist
-        if not keep.all():
-            kept = np.flatnonzero(keep)
-            flat_starts = [flat_starts[k] for k in kept]
-            flat_meta = [flat_meta[k] for k in kept]
-            lbs = lbs[kept]
+        with TRACE.stage("verify.prep.bound"):
+            lbs = self._lb_values_meta(st, flat_meta, flat_starts)
+        with TRACE.stage("verify.prep.filter"):
+            keep = lbs <= self.num_editdist
+            if not keep.all():
+                kept = np.flatnonzero(keep)
+                flat_starts = [flat_starts[k] for k in kept]
+                flat_meta = [flat_meta[k] for k in kept]
+                lbs = lbs[kept]
         if not flat_meta:
             return None
         fwd_codes, rc_codes = st["fwd_codes"], st["rc_codes"]
@@ -835,8 +838,8 @@ class GeneAligner:
             cost, over = self._dp_tables.costs(
                 reads, lens, starts, max_novel=self.num_editdist)
             # the fetch waits for the kernel: keep it inside the stage
-            cost = cost.cpu().numpy()
-            over = over.cpu().numpy()
+            cost = to_host(cost)
+            over = to_host(over)
         return cost, over
 
     def _apply_dp(self, st, entries, cost, over):

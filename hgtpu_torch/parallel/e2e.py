@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from ..db.catalog import GeneRef, VT_DELETION, VT_INSERTION, VT_SINGLE
-from ..utils.trace import TRACE
+from ..utils.trace import TRACE, to_host
 from .. import resolve_device
 from ..ops.placement import backbone_pwm, correlate_scores, encode_reads
 from ..typer.device_count import DeviceCounter
@@ -1767,7 +1767,7 @@ class ShardedTyper:
     @staticmethod
     def _fetch_u32(t):
         """An int32 device buffer as hgtpu's uint32 host array."""
-        return t.cpu().numpy().view(np.uint32)
+        return to_host(t).view(np.uint32)
 
     def count_classes(self, r1_codes: np.ndarray, r2_codes=None,
                       bucket: bool = True, merge_pileup=None,
@@ -1810,119 +1810,122 @@ class ShardedTyper:
         # (H <= 8: every read's wide window holds <= 2 catalog indels)
         fuse = (self._fused_H <= 8
                 and os.environ.get("HGTPU_FUSED_SPELL", "auto") != "off")
-        if fuse:
-            _t_spell = TRACE.stage("device.spell")
-            _t_spell.__enter__()
-            c1t = self._pad(r1_codes, bucket)
-            n_pad_t = c1t.shape[0]
-            self._count_work(n_pad_t, n_mates)
-            if n_mates == 1:
-                aout = self._spell_fused[1](*self._tables, self._dev(c1t))
-            else:
-                c2t = self._pad(r2_codes, bucket)
-                aout = self._spell_fused[2](
-                    *self._tables, self._dev(c1t), self._dev(c2t))
-            tinfo = [(0, np.arange(n), n_pad_t, aout)]
-        else:
+        if not fuse:
             # -- place pass over the full batch: tier assignment ------ #
-            _t_place = TRACE.stage("device.place")
-            _t_place.__enter__()
-            p1f = self._pad(r1_codes, bucket)
-            self._count_work(p1f.shape[0], n_mates)
-            if n_mates == 1:
-                pl = self._place_single_p(*self._tables, self._dev(p1f))
-            else:
-                p2f = self._pad(r2_codes, bucket)
-                pl = self._place_pairs_p(*self._tables, self._dev(p1f),
-                                         self._dev(p2f))
-            pl = pl.cpu().numpy()[:n].T
-            _t_place.__exit__(None, None, None)
-            _t_spell = TRACE.stage("device.spell")
-            _t_spell.__enter__()
-            tier = np.clip(pl[3], 0, 2)
-            if n_mates == 2:
-                tier = np.maximum(tier, np.clip(pl[7], 0, 2))
-            idx_t = [np.flatnonzero(tier == t) for t in range(3)]
-
-            # -- per-tier pass A: all launched, then fetched ---------- #
-            tinfo = []
-            for t, idx in enumerate(idx_t):
-                if len(idx) == 0:
-                    continue
-                c1t = self._pad(r1_codes[idx], bucket)
+            with TRACE.stage("device.place"):
+                p1f = self._pad(r1_codes, bucket)
+                self._count_work(p1f.shape[0], n_mates)
+                p2f = self._pad(r2_codes, bucket) if n_mates == 2 else None
+                with TRACE.stage("pass.dispatch"):
+                    if n_mates == 1:
+                        pl = self._place_single_p(*self._tables,
+                                                  self._dev(p1f))
+                    else:
+                        pl = self._place_pairs_p(*self._tables,
+                                                 self._dev(p1f),
+                                                 self._dev(p2f))
+                pl = to_host(pl)[:n].T
+        with TRACE.stage("device.spell"):
+            if fuse:
+                c1t = self._pad(r1_codes, bucket)
                 n_pad_t = c1t.shape[0]
+                self._count_work(n_pad_t, n_mates)
+                c2t = self._pad(r2_codes, bucket) if n_mates == 2 else None
+                with TRACE.stage("pass.dispatch"):
+                    if n_mates == 1:
+                        aout = self._spell_fused[1](*self._tables,
+                                                    self._dev(c1t))
+                    else:
+                        aout = self._spell_fused[2](
+                            *self._tables, self._dev(c1t), self._dev(c2t))
+                tinfo = [(0, np.arange(n), n_pad_t, aout)]
+            else:
+                tier = np.clip(pl[3], 0, 2)
+                if n_mates == 2:
+                    tier = np.maximum(tier, np.clip(pl[7], 0, 2))
+                idx_t = [np.flatnonzero(tier == t) for t in range(3)]
 
-                def padi(row, n_pad_t=n_pad_t, idx=idx):
-                    out = np.zeros(n_pad_t, np.int32)
-                    out[:len(idx)] = row[idx]
-                    return self._dev(out)
+                # -- per-tier pass A: all launched, then fetched ------ #
+                tinfo = []
+                for t, idx in enumerate(idx_t):
+                    if len(idx) == 0:
+                        continue
+                    c1t = self._pad(r1_codes[idx], bucket)
+                    n_pad_t = c1t.shape[0]
 
-                if n_mates == 1:
-                    aout = self._spell_single_t[t](
-                        *self._tables, self._dev(c1t),
-                        padi(pl[0]), padi(pl[1]), padi(pl[2]))
-                else:
-                    c2t = self._pad(r2_codes[idx], bucket)
-                    aout = self._spell_pairs_t[t](
-                        *self._tables, self._dev(c1t), self._dev(c2t),
-                        padi(pl[0]), padi(pl[1]), padi(pl[2]),
-                        padi(pl[4]), padi(pl[5]), padi(pl[6]))
-                tinfo.append((t, idx, n_pad_t, aout))
+                    def padi(row, n_pad_t=n_pad_t, idx=idx):
+                        out = np.zeros(n_pad_t, np.int32)
+                        out[:len(idx)] = row[idx]
+                        return self._dev(out)
 
-        pile_dev = np.zeros((self.P_bb, 6), np.int64)
-        excl = np.zeros(n, bool)
-        winner = [dict(l=np.zeros(n, np.int64),
-                       rc=np.zeros(n, bool),
-                       tier1=np.zeros(n, bool),
-                       causes=np.zeros(n, np.int64),
-                       iva=np.zeros(n, np.int64),
-                       ivb=np.zeros(n, np.int64))
-                  for _ in range(n_mates)]
-        # ONE fetch for every tier's spell buffer (device-side concat)
-        if len(tinfo) > 1:
-            widths = [int(a[0].shape[0]) // ndev
-                      for (_t, _i, _np_, a) in tinfo]
-            comb = self._fetch_u32(self._combine_bufs(
-                *[a[0] for (_t, _i, _np_, a) in tinfo]))
-            offs = np.concatenate([[0], np.cumsum(widths)])
-            abufs = [comb[:, offs[k]:offs[k + 1]]
-                     for k in range(len(tinfo))]
-        else:
-            abufs = [self._fetch_u32(tinfo[0][3][0]).reshape(ndev, -1)]
-        for ti, (t, idx, n_pad_t, aout) in enumerate(tinfo):
-            abuf = abufs[ti]
-            n_loc_t = n_pad_t // ndev
-            npw_t = (n_loc_t + 31) // 32
-            pile_dev += abuf[0, :P6].astype(np.int64).reshape(
-                self.P_bb, 6)
-            excl_t = np.zeros(n_pad_t, bool)
-            wt = [dict() for _ in range(n_mates)]
-            for mi in range(n_mates):
-                for k in ("info", "iva", "ivb"):
-                    wt[mi][k] = np.zeros(n_pad_t, np.uint32)
-            for s in range(ndev):
-                b = abuf[s]
-                at = P6
-                sl = slice(s * n_loc_t, (s + 1) * n_loc_t)
-                excl_t[sl] = self._unpack_bits(b[at:at + npw_t], n_loc_t)
-                at += npw_t
+                    c2t = self._pad(r2_codes[idx], bucket) \
+                        if n_mates == 2 else None
+                    with TRACE.stage("pass.dispatch"):
+                        if n_mates == 1:
+                            aout = self._spell_single_t[t](
+                                *self._tables, self._dev(c1t),
+                                padi(pl[0]), padi(pl[1]), padi(pl[2]))
+                        else:
+                            aout = self._spell_pairs_t[t](
+                                *self._tables, self._dev(c1t),
+                                self._dev(c2t),
+                                padi(pl[0]), padi(pl[1]), padi(pl[2]),
+                                padi(pl[4]), padi(pl[5]), padi(pl[6]))
+                    tinfo.append((t, idx, n_pad_t, aout))
+
+            pile_dev = np.zeros((self.P_bb, 6), np.int64)
+            excl = np.zeros(n, bool)
+            winner = [dict(l=np.zeros(n, np.int64),
+                           rc=np.zeros(n, bool),
+                           tier1=np.zeros(n, bool),
+                           causes=np.zeros(n, np.int64),
+                           iva=np.zeros(n, np.int64),
+                           ivb=np.zeros(n, np.int64))
+                      for _ in range(n_mates)]
+            # ONE fetch for every tier's spell buffer (device-side concat)
+            if len(tinfo) > 1:
+                widths = [int(a[0].shape[0]) // ndev
+                          for (_t, _i, _np_, a) in tinfo]
+                comb = self._fetch_u32(self._combine_bufs(
+                    *[a[0] for (_t, _i, _np_, a) in tinfo]))
+                offs = np.concatenate([[0], np.cumsum(widths)])
+                abufs = [comb[:, offs[k]:offs[k + 1]]
+                         for k in range(len(tinfo))]
+            else:
+                abufs = [self._fetch_u32(tinfo[0][3][0]).reshape(ndev, -1)]
+            for ti, (t, idx, n_pad_t, aout) in enumerate(tinfo):
+                abuf = abufs[ti]
+                n_loc_t = n_pad_t // ndev
+                npw_t = (n_loc_t + 31) // 32
+                pile_dev += abuf[0, :P6].astype(np.int64).reshape(
+                    self.P_bb, 6)
+                excl_t = np.zeros(n_pad_t, bool)
+                wt = [dict() for _ in range(n_mates)]
                 for mi in range(n_mates):
                     for k in ("info", "iva", "ivb"):
-                        wt[mi][k][sl] = b[at:at + n_loc_t]
-                        at += n_loc_t
-            m = len(idx)
-            excl[idx] = excl_t[:m]
-            for mi in range(n_mates):
-                info = wt[mi]["info"][:m]
-                winner[mi]["l"][idx] = ((info >> 2)
-                                        & ((1 << 26) - 1)).astype(np.int64)
-                winner[mi]["causes"][idx] = (info >> 28).astype(np.int64)
-                winner[mi]["rc"][idx] = ((info >> 1) & 1).astype(bool)
-                winner[mi]["tier1"][idx] = (info & 1).astype(bool)
-                winner[mi]["iva"][idx] = wt[mi]["iva"][:m].astype(np.int64)
-                winner[mi]["ivb"][idx] = wt[mi]["ivb"][:m].astype(np.int64)
-        pile_dev = pile_dev.astype(np.int32)
-        _t_spell.__exit__(None, None, None)
+                        wt[mi][k] = np.zeros(n_pad_t, np.uint32)
+                for s in range(ndev):
+                    b = abuf[s]
+                    at = P6
+                    sl = slice(s * n_loc_t, (s + 1) * n_loc_t)
+                    excl_t[sl] = self._unpack_bits(b[at:at + npw_t], n_loc_t)
+                    at += npw_t
+                    for mi in range(n_mates):
+                        for k in ("info", "iva", "ivb"):
+                            wt[mi][k][sl] = b[at:at + n_loc_t]
+                            at += n_loc_t
+                m = len(idx)
+                excl[idx] = excl_t[:m]
+                for mi in range(n_mates):
+                    info = wt[mi]["info"][:m]
+                    winner[mi]["l"][idx] = ((info >> 2)
+                                            & ((1 << 26) - 1)).astype(np.int64)
+                    winner[mi]["causes"][idx] = (info >> 28).astype(np.int64)
+                    winner[mi]["rc"][idx] = ((info >> 1) & 1).astype(bool)
+                    winner[mi]["tier1"][idx] = (info & 1).astype(bool)
+                    winner[mi]["iva"][idx] = wt[mi]["iva"][:m].astype(np.int64)
+                    winner[mi]["ivb"][idx] = wt[mi]["ivb"][:m].astype(np.int64)
+            pile_dev = pile_dev.astype(np.int32)
 
         # -- host merge: the final (host-full) pileup ----------------- #
         final_pile = pile_dev
@@ -1931,106 +1934,105 @@ class ShardedTyper:
 
         # -- pass B: ONE call gates + counts + packs every tier's rows
         # against the final pileup -- #
-        _t_cnt = TRACE.stage("device.countB")
-        _t_cnt.__enter__()
-        pin = self._dev(np.ascontiguousarray(
-            final_pile, dtype=np.int32).reshape(-1))
-        T = len(tinfo)
-        flat_state = [a for (_t, _i, _np_, aout) in tinfo
-                      for a in aout[1:]]
-        out = self._count_multi[(n_mates, T)](*self._tables, pin,
-                                              *flat_state)
-        n_loc_list = [n_pad_t // ndev for (_t, _i, n_pad_t, _a) in tinfo]
-        n_loc = sum(n_loc_list)
-        cap = min(self._class_cap, NLEV * n_loc,
-                  max(512, 65536 // max(W32, 1)))
-        npw = (n_loc + 31) // 32
-        BUF = cap * W32 + 2 * cap + NLEV * A + 2 * npw + 4
-        # local row -> original read index (concat layout: tier-0 rows,
-        # then tier-1, then tier-2) — built BEFORE the blocking fetch so
-        # host prep overlaps the device count pass
-        orig_shard = np.full((ndev, n_loc), n, np.int64)
-        off_t = np.concatenate([[0], np.cumsum(n_loc_list)])
-        for ti, (_t, idx, n_pad_t, _a) in enumerate(tinfo):
-            nl = n_loc_list[ti]
-            om = np.full(n_pad_t, n, np.int64)
-            om[:len(idx)] = idx
-            orig_shard[:, off_t[ti]:off_t[ti] + nl] = \
-                om.reshape(ndev, nl)
-        if overlap is not None:
-            # host work independent of the count-pass output (the punt
-            # rescue's fast-path memo prefill) runs while the launched
-            # count pass executes on the device
-            overlap()
-        buf = self._fetch_u32(out[0]).reshape(ndev, BUF)
+        with TRACE.stage("device.countB"):
+            pin = self._dev(np.ascontiguousarray(
+                final_pile, dtype=np.int32).reshape(-1))
+            T = len(tinfo)
+            flat_state = [a for (_t, _i, _np_, aout) in tinfo
+                          for a in aout[1:]]
+            with TRACE.stage("pass.dispatch"):
+                out = self._count_multi[(n_mates, T)](*self._tables, pin,
+                                                      *flat_state)
+            n_loc_list = [n_pad_t // ndev for (_t, _i, n_pad_t, _a) in tinfo]
+            n_loc = sum(n_loc_list)
+            cap = min(self._class_cap, NLEV * n_loc,
+                      max(512, 65536 // max(W32, 1)))
+            npw = (n_loc + 31) // 32
+            BUF = cap * W32 + 2 * cap + NLEV * A + 2 * npw + 4
+            # local row -> original read index (concat layout: tier-0 rows,
+            # then tier-1, then tier-2) — built BEFORE the blocking fetch so
+            # host prep overlaps the device count pass
+            orig_shard = np.full((ndev, n_loc), n, np.int64)
+            off_t = np.concatenate([[0], np.cumsum(n_loc_list)])
+            for ti, (_t, idx, n_pad_t, _a) in enumerate(tinfo):
+                nl = n_loc_list[ti]
+                om = np.full(n_pad_t, n, np.int64)
+                om[:len(idx)] = idx
+                orig_shard[:, off_t[ti]:off_t[ti] + nl] = \
+                    om.reshape(ndev, nl)
+            if overlap is not None:
+                # host work independent of the count-pass output (the punt
+                # rescue's fast-path memo prefill) runs while the launched
+                # count pass executes on the device
+                overlap()
+            buf = self._fetch_u32(out[0]).reshape(ndev, BUF)
 
-        rows_parts, uw_parts, ord_parts = [], [], []
-        punt = np.zeros(n + 1, bool)
-        n_reads = 0
-        n_pairs = 0
-        totals = None
-        overflow_fetch = None
-        for s in range(ndev):
-            b = buf[s]
-            at = cap * W32
-            rows_s = b[:at].reshape(cap, W32)
-            uw_s = b[at:at + cap].astype(np.int64)
-            min_s = b[at + cap:at + 2 * cap].astype(np.int64)
-            at += 2 * cap
-            tt = b[at:at + NLEV * A].astype(np.int64).reshape(NLEV, A)
-            at += NLEV * A
-            pw = b[at:at + npw]
-            at += 2 * npw     # punt words + excl words
-            n_uniq, nr, npair, _np_ = (int(x) for x in b[at:at + 4])
-            if s == 0:
-                totals = tt
-            n_reads += nr
-            n_pairs += npair
-            bits = self._unpack_bits(pw, n_loc)
-            punt[orig_shard[s][bits]] = True
-            if n_uniq > cap:
-                # rare overflow: fetch the full sorted rows through the
-                # exact secondary leaves
-                if overflow_fetch is None:
-                    overflow_fetch = [self._fetch_u32(out[1])] + [
-                        x.cpu().numpy() for x in out[2:5]]
-                fs_all, first_all, uw_all, min_all = overflow_fetch
-                blk = NLEV * n_loc
-                fs_s = fs_all[s * blk:(s + 1) * blk]
-                first_s = first_all[s * blk:(s + 1) * blk]
-                uwf = uw_all[s * blk:(s + 1) * blk]
-                minf = min_all[s * blk:(s + 1) * blk]
-                fr = np.flatnonzero(first_s)
-                rows_s = fs_s[fr]
-                uw_s = uwf[:len(fr)].astype(np.int64)
-                min_s = minf[:len(fr)].astype(np.int64)
-                n_uniq = len(fr)
-            rows_s = rows_s[:n_uniq]
-            uw_s = uw_s[:n_uniq]
-            min_s = min_s[:n_uniq]
-            keep = uw_s > 0
-            rows_parts.append(rows_s[keep])
-            uw_parts.append(uw_s[keep])
-            # global first-seen order: (level, original read index)
-            m = min_s[keep]
-            ord_parts.append((m // n_loc) * np.int64(n + 1)
-                             + orig_shard[s][m % n_loc])
-        punt = punt[:n]
-        rows = np.concatenate(rows_parts) if rows_parts else \
-            np.zeros((0, W32), np.uint32)
-        uws = np.concatenate(uw_parts) if uw_parts else \
-            np.zeros(0, np.int64)
-        order_key = np.concatenate(ord_parts) if ord_parts else \
-            np.zeros(0, np.int64)
+            rows_parts, uw_parts, ord_parts = [], [], []
+            punt = np.zeros(n + 1, bool)
+            n_reads = 0
+            n_pairs = 0
+            totals = None
+            overflow_fetch = None
+            for s in range(ndev):
+                b = buf[s]
+                at = cap * W32
+                rows_s = b[:at].reshape(cap, W32)
+                uw_s = b[at:at + cap].astype(np.int64)
+                min_s = b[at + cap:at + 2 * cap].astype(np.int64)
+                at += 2 * cap
+                tt = b[at:at + NLEV * A].astype(np.int64).reshape(NLEV, A)
+                at += NLEV * A
+                pw = b[at:at + npw]
+                at += 2 * npw     # punt words + excl words
+                n_uniq, nr, npair, _np_ = (int(x) for x in b[at:at + 4])
+                if s == 0:
+                    totals = tt
+                n_reads += nr
+                n_pairs += npair
+                bits = self._unpack_bits(pw, n_loc)
+                punt[orig_shard[s][bits]] = True
+                if n_uniq > cap:
+                    # rare overflow: fetch the full sorted rows through the
+                    # exact secondary leaves
+                    if overflow_fetch is None:
+                        overflow_fetch = [self._fetch_u32(out[1])] + [
+                            to_host(x) for x in out[2:5]]
+                    fs_all, first_all, uw_all, min_all = overflow_fetch
+                    blk = NLEV * n_loc
+                    fs_s = fs_all[s * blk:(s + 1) * blk]
+                    first_s = first_all[s * blk:(s + 1) * blk]
+                    uwf = uw_all[s * blk:(s + 1) * blk]
+                    minf = min_all[s * blk:(s + 1) * blk]
+                    fr = np.flatnonzero(first_s)
+                    rows_s = fs_s[fr]
+                    uw_s = uwf[:len(fr)].astype(np.int64)
+                    min_s = minf[:len(fr)].astype(np.int64)
+                    n_uniq = len(fr)
+                rows_s = rows_s[:n_uniq]
+                uw_s = uw_s[:n_uniq]
+                min_s = min_s[:n_uniq]
+                keep = uw_s > 0
+                rows_parts.append(rows_s[keep])
+                uw_parts.append(uw_s[keep])
+                # global first-seen order: (level, original read index)
+                m = min_s[keep]
+                ord_parts.append((m // n_loc) * np.int64(n + 1)
+                                 + orig_shard[s][m % n_loc])
+            punt = punt[:n]
+            rows = np.concatenate(rows_parts) if rows_parts else \
+                np.zeros((0, W32), np.uint32)
+            uws = np.concatenate(uw_parts) if uw_parts else \
+                np.zeros(0, np.int64)
+            order_key = np.concatenate(ord_parts) if ord_parts else \
+                np.zeros(0, np.int64)
 
-        levels = {}
-        order = {}
-        for li, (name, _inc) in enumerate(self._levels):
-            sel = np.flatnonzero((order_key // (n + 1)) == li)
-            sub = sel[np.argsort(order_key[sel], kind="stable")]
-            levels[name] = (rows[sub], uws[sub], totals[li])
-            order[name] = order_key[sub] % (n + 1)
-        _t_cnt.__exit__(None, None, None)
+            levels = {}
+            order = {}
+            for li, (name, _inc) in enumerate(self._levels):
+                sel = np.flatnonzero((order_key // (n + 1)) == li)
+                sub = sel[np.argsort(order_key[sel], kind="stable")]
+                levels[name] = (rows[sub], uws[sub], totals[li])
+                order[name] = order_key[sub] % (n + 1)
         return dict(levels=levels, order=order, pileup=final_pile,
                     punt=punt, excl=excl, n_reads=n_reads,
                     n_pairs=n_pairs, winner=winner)

@@ -310,35 +310,33 @@ def type_reads_device_distributed(gene, reads_1, reads_2=None, opts=None,
     mpileup = holder["mpileup"]
 
     # 2. merge packed class rows in global first-seen read order
-    _t = TRACE.stage("dist.classes")
-    _t.__enter__()
-    full_stats = StatAccumulator(gene.allele_names)
-    exon_stats = None
-    primary_stats = None
-    accs = {"full": full_stats}
-    if "exon" in out["levels"]:
-        exon_stats = StatAccumulator(gene.allele_names, st._rep_mask_np)
-        accs["exon"] = exon_stats
-    if "primary" in out["levels"]:
-        primary_stats = StatAccumulator(gene.allele_names,
-                                        st._primary_mask_np)
-        accs["primary"] = primary_stats
-    for name, acc in accs.items():
-        rows, uws, totals = out["levels"][name]
-        keys = out["order"][name] + global_start
-        rows_all = _gather_parts(rows.astype(np.uint32))
-        uws_all = _gather_parts(uws.astype(np.int64))
-        keys_all = _gather_parts(keys.astype(np.int64))
-        rows_g = np.concatenate(rows_all)
-        uws_g = np.concatenate(uws_all)
-        keys_g = np.concatenate(keys_all)
-        order = np.argsort(keys_g, kind="stable")
-        totals_g = _allsum(np.asarray(totals, np.int64))
-        acc.add_packed_batch(rows_g[order], uws_g[order], totals_g)
+    with TRACE.stage("dist.classes"):
+        full_stats = StatAccumulator(gene.allele_names)
+        exon_stats = None
+        primary_stats = None
+        accs = {"full": full_stats}
+        if "exon" in out["levels"]:
+            exon_stats = StatAccumulator(gene.allele_names, st._rep_mask_np)
+            accs["exon"] = exon_stats
+        if "primary" in out["levels"]:
+            primary_stats = StatAccumulator(gene.allele_names,
+                                            st._primary_mask_np)
+            accs["primary"] = primary_stats
+        for name, acc in accs.items():
+            rows, uws, totals = out["levels"][name]
+            keys = out["order"][name] + global_start
+            rows_all = _gather_parts(rows.astype(np.uint32))
+            uws_all = _gather_parts(uws.astype(np.int64))
+            keys_all = _gather_parts(keys.astype(np.int64))
+            rows_g = np.concatenate(rows_all)
+            uws_g = np.concatenate(uws_all)
+            keys_g = np.concatenate(keys_all)
+            order = np.argsort(keys_g, kind="stable")
+            totals_g = _allsum(np.asarray(totals, np.int64))
+            acc.add_packed_batch(rows_g[order], uws_g[order], totals_g)
 
-    n_reads = int(_allsum(np.array([out["n_reads"]], np.int64))[0])
-    n_pairs = int(_allsum(np.array([out["n_pairs"]], np.int64))[0])
-    _t.__exit__(None, None, None)
+        n_reads = int(_allsum(np.array([out["n_reads"]], np.int64))[0])
+        n_pairs = int(_allsum(np.array([out["n_pairs"]], np.int64))[0])
 
     # 3. local punt rescue -> per-fragment rows -> global merge
     punt_idx = np.flatnonzero(out["punt"])
@@ -349,21 +347,19 @@ def type_reads_device_distributed(gene, reads_1, reads_2=None, opts=None,
     keys, rf, re_, rp, r_reads, novel = _rescued_fragment_rows(
         gene, opts, reads_1, by_pair, punt_idx, mpileup,
         pre=holder.get("pre"), device=device)
-    _t = TRACE.stage("dist.rescue")
-    _t.__enter__()
-    kw = _gather_parts(keys.astype(np.uint8))
-    kl = max(k.shape[1] if k.size else 0 for k in kw)
-    kpad = [np.pad(k, ((0, 0), (0, kl - k.shape[1])))
-            if k.size else np.zeros((len(k), kl), np.uint8) for k in kw]
-    keys_g = np.concatenate(kpad) if kl else np.zeros((0, 0), np.uint8)
-    rf_g = np.concatenate(_gather_parts(rf))
-    re_g = np.concatenate(_gather_parts(re_))
-    rp_g = np.concatenate(_gather_parts(rp))
-    n_reads += int(_allsum(np.array([r_reads], np.int64))[0])
-    n_pairs += len(keys_g)
-    # merge novel-variant provenance across processes (report parity)
-    novel_meta = _merge_novel_meta(novel.meta, novel.first_read)
-    _t.__exit__(None, None, None)
+    with TRACE.stage("dist.rescue"):
+        kw = _gather_parts(keys.astype(np.uint8))
+        kl = max(k.shape[1] if k.size else 0 for k in kw)
+        kpad = [np.pad(k, ((0, 0), (0, kl - k.shape[1])))
+                if k.size else np.zeros((len(k), kl), np.uint8) for k in kw]
+        keys_g = np.concatenate(kpad) if kl else np.zeros((0, 0), np.uint8)
+        rf_g = np.concatenate(_gather_parts(rf))
+        re_g = np.concatenate(_gather_parts(re_))
+        rp_g = np.concatenate(_gather_parts(rp))
+        n_reads += int(_allsum(np.array([r_reads], np.int64))[0])
+        n_pairs += len(keys_g)
+        # merge novel-variant provenance across processes (report parity)
+        novel_meta = _merge_novel_meta(novel.meta, novel.first_read)
     if len(keys_g):
         with TRACE.stage("rescue.fold"):
             order = np.lexsort(keys_g.T[::-1])

@@ -464,93 +464,89 @@ def _count_rescued(gene, opts, reads_1, by_pair, idx, mpileup, stats,
     ht_cache = {}
     grouped = {}
     A = gene.n_alleles
-    _t_loop = TRACE.stage("rescue.hts_loop")
-    _t_loop.__enter__()
-    for read_id in sorted(by_read):
-        alns = _concordant(by_read[read_id], opts)
-        if alns is None:
-            continue
-        left_hts, right_hts = set(), set()
-        for a in alns:
-            if a.nm > opts.num_editdist:
+    with TRACE.stage("rescue.hts_loop"):
+        for read_id in sorted(by_read):
+            alns = _concordant(by_read[read_id], opts)
+            if alns is None:
                 continue
-            n_reads += 1
-            key = aln_key(a)
-            hit = hts_memo.get(key, False)
-            if hit is False:
-                hit = typer_h.read_hts(a, novel, mpileup)
-                hts_memo[key] = hit
-            if hit is not None:
-                (left_hts if a.mate == "L" else right_hts).update(hit)
-            for alt in (a.alts or ()):
-                alt_hts = typer_h.read_hts(alt, novel, mpileup)
-                if alt_hts is not None:
-                    (left_hts if a.mate == "L"
-                     else right_hts).update(alt_hts)
-        positive_hts = left_hts | right_hts
-        if not positive_hts:
-            continue
-        n_pairs += 1
-        key = frozenset(positive_hts)
-        hit = grouped.get(key)
-        if hit is None:
-            grouped[key] = [1, positive_hts]
-        else:
-            hit[0] += 1
+            left_hts, right_hts = set(), set()
+            for a in alns:
+                if a.nm > opts.num_editdist:
+                    continue
+                n_reads += 1
+                key = aln_key(a)
+                hit = hts_memo.get(key, False)
+                if hit is False:
+                    hit = typer_h.read_hts(a, novel, mpileup)
+                    hts_memo[key] = hit
+                if hit is not None:
+                    (left_hts if a.mate == "L" else right_hts).update(hit)
+                for alt in (a.alts or ()):
+                    alt_hts = typer_h.read_hts(alt, novel, mpileup)
+                    if alt_hts is not None:
+                        (left_hts if a.mate == "L"
+                         else right_hts).update(alt_hts)
+            positive_hts = left_hts | right_hts
+            if not positive_hts:
+                continue
+            n_pairs += 1
+            key = frozenset(positive_hts)
+            hit = grouped.get(key)
+            if hit is None:
+                grouped[key] = [1, positive_hts]
+            else:
+                hit[0] += 1
 
-    _t_loop.__exit__(None, None, None)
     # one vectorized mask batch + reduceat fold over all rescued pairs
     # (the type_gene stats fold, typer/engine.py) instead of per-pair
     # python
     if grouped:
-        _t = TRACE.stage("rescue.fold")
-        _t.__enter__()
-        unique_hts = sorted(set().union(*(g[1] for g in grouped.values())))
-        # same counting/fold selection as type_gene: the device fold
-        # (K2) at scale or on CUDA, the host reduceat fold otherwise
-        use_device = opts.device_counting == "on" or (
-            opts.device_counting == "auto"
-            and (A >= DEVICE_FOLD_MIN_A or typer_h.device.type == "cuda"))
-        folded = None
-        if use_device:
-            folded = typer_h.device_fold_run(unique_hts, novel, grouped)
-        if folded is not None:
-            stats_levels = [full_stats, exon_stats, primary_stats] \
-                if opts.family == "hla" else [full_stats]
-            for packed, stx in zip(folded, stats_levels):
-                if stx is not None:
-                    stx.add_packed_batch(*packed)
-        else:
-            typer_h.ht_masks_batch_host(unique_hts, novel, ht_cache)
-            ht_idx = {h: i for i, h in enumerate(unique_hts)}
-            U = len(unique_hts)
-            mask_f = np.empty((U, A), np.int32)
-            mask_e = np.empty((U, A), np.int32)
-            mask_p = np.empty((U, A), np.int32)
-            for i, h in enumerate(unique_hts):
-                full, exon, primary = ht_cache[h]
-                mask_f[i] = full
-                mask_e[i] = exon
-                mask_p[i] = primary
-            weights = np.fromiter((g[0] for g in grouped.values()),
-                                  np.int64, len(grouped))
-            flat = []
-            starts = np.empty(len(grouped), np.int64)
-            at = 0
-            for gi, (_w, hts) in enumerate(grouped.values()):
-                starts[gi] = at
-                flat.extend(ht_idx[h] for h in hts)
-                at += len(hts)
-            flat = np.asarray(flat, np.int64)
-            full_stats.add_reads_batch(
-                np.add.reduceat(mask_f[flat], starts, axis=0), weights)
-            if exon_stats is not None:
-                exon_stats.add_reads_batch(
-                    np.add.reduceat(mask_e[flat], starts, axis=0), weights)
-            if primary_stats is not None:
-                primary_stats.add_reads_batch(
-                    np.add.reduceat(mask_p[flat], starts, axis=0), weights)
-        _t.__exit__(None, None, None)
+        with TRACE.stage("rescue.fold"):
+            unique_hts = sorted(set().union(*(g[1] for g in grouped.values())))
+            # same counting/fold selection as type_gene: the device fold
+            # (K2) at scale or on CUDA, the host reduceat fold otherwise
+            use_device = opts.device_counting == "on" or (
+                opts.device_counting == "auto"
+                and (A >= DEVICE_FOLD_MIN_A or typer_h.device.type == "cuda"))
+            folded = None
+            if use_device:
+                folded = typer_h.device_fold_run(unique_hts, novel, grouped)
+            if folded is not None:
+                stats_levels = [full_stats, exon_stats, primary_stats] \
+                    if opts.family == "hla" else [full_stats]
+                for packed, stx in zip(folded, stats_levels):
+                    if stx is not None:
+                        stx.add_packed_batch(*packed)
+            else:
+                typer_h.ht_masks_batch_host(unique_hts, novel, ht_cache)
+                ht_idx = {h: i for i, h in enumerate(unique_hts)}
+                U = len(unique_hts)
+                mask_f = np.empty((U, A), np.int32)
+                mask_e = np.empty((U, A), np.int32)
+                mask_p = np.empty((U, A), np.int32)
+                for i, h in enumerate(unique_hts):
+                    full, exon, primary = ht_cache[h]
+                    mask_f[i] = full
+                    mask_e[i] = exon
+                    mask_p[i] = primary
+                weights = np.fromiter((g[0] for g in grouped.values()),
+                                      np.int64, len(grouped))
+                flat = []
+                starts = np.empty(len(grouped), np.int64)
+                at = 0
+                for gi, (_w, hts) in enumerate(grouped.values()):
+                    starts[gi] = at
+                    flat.extend(ht_idx[h] for h in hts)
+                    at += len(hts)
+                flat = np.asarray(flat, np.int64)
+                full_stats.add_reads_batch(
+                    np.add.reduceat(mask_f[flat], starts, axis=0), weights)
+                if exon_stats is not None:
+                    exon_stats.add_reads_batch(
+                        np.add.reduceat(mask_e[flat], starts, axis=0), weights)
+                if primary_stats is not None:
+                    primary_stats.add_reads_batch(
+                        np.add.reduceat(mask_p[flat], starts, axis=0), weights)
     return n_reads, n_pairs, novel
 
 
@@ -654,9 +650,11 @@ def type_reads_device(gene: GeneRef, reads_1, reads_2=None,
     with TRACE.stage("type.em"):
         from ..typer.staging import staged_abundance
 
-        full_cmpt = full_stats.cmpt_names()
-        exon_cmpt = exon_stats.cmpt_names() if exon_stats else {}
-        primary_cmpt = primary_stats.cmpt_names() if primary_stats else {}
+        with TRACE.stage("em.build"):
+            full_cmpt = full_stats.cmpt_names()
+            exon_cmpt = exon_stats.cmpt_names() if exon_stats else {}
+            primary_cmpt = primary_stats.cmpt_names() \
+                if primary_stats else {}
         rep_groups = getattr(st, "_rep_groups", {})
         primary_groups = getattr(st, "_primary_groups", {})
         prob = staged_abundance(gene, opts, full_cmpt, exon_cmpt,

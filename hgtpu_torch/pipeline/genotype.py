@@ -21,6 +21,7 @@ from ..sim import simulate_reads
 from .. import resolve_device
 from ..align import GeneAligner
 from ..typer.engine import TypingOptions, type_gene
+from ..utils.trace import TRACE
 
 
 def type_reads_linear(gene: GeneRef, reads_1, reads_2=None, opts=None,
@@ -74,7 +75,13 @@ def type_reads(gene: GeneRef, reads_1, reads_2=None, opts=None,
     staged numpy EM.  `device` defaults to the aligner's device; with
     neither, the production path runs over default_mesh() (every visible
     card) and the host path on its first card, as hgtpu takes its
-    default mesh."""
+    default mesh.  The call is one TRACE call under the root stage
+    call.type_reads."""
+    with TRACE.stage("call.type_reads"):
+        return _type_reads(gene, reads_1, reads_2, opts, aligner, device)
+
+
+def _type_reads(gene, reads_1, reads_2, opts, aligner, device):
     opts = opts or TypingOptions()
     if device is None and aligner is not None:
         device = aligner.device

@@ -21,6 +21,7 @@ import torch
 
 from ..db.catalog import GeneRef, VT_DELETION
 from .. import resolve_device
+from ..utils.trace import to_host
 from ..ops.compat_kernel import and_reduce, pitched
 
 MAX_HT_VARS = 16
@@ -121,7 +122,7 @@ class DeviceCounter:
         bits = _compat(*self.tables(), torch.from_numpy(lefts).to(dev),
                        torch.from_numpy(rights).to(dev),
                        torch.from_numpy(vars_).to(dev))
-        return bits.cpu().numpy()[:, : self.A]
+        return to_host(bits)[:, : self.A]
 
 
 def _compat(links_packed, nd_pos, nd_prefix, del_pos, del_right, del_links,

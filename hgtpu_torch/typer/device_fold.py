@@ -58,96 +58,93 @@ class DeviceFold:
         in level order (full, exon, primary), or None when a ht exceeds
         the device variant budget (host fallback).
         """
-        import time as _time
-
         from .exons import get_exon_haplotypes
-        from ..utils.trace import TRACE
+        from ..utils.trace import TRACE, to_host
 
-        _t_prep0 = _time.perf_counter()
-        typer = self.typer
-        gene = self.gene
-        U = len(hts_sorted)
-        A = gene.n_alleles
+        with TRACE.stage("type.count_fold.prep"):
+            typer = self.typer
+            gene = self.gene
+            U = len(hts_sorted)
+            A = gene.n_alleles
 
-        # ---- sub-ht prep: full + exon + primary projections ---- #
-        # catalog-only hts project identically across runs of one gene;
-        # novel-var hts ('nv' tokens) depend on the run's registry and
-        # are never cached.  The cache lives on the gene's shared typing
-        # state so repeat runs (and fresh GeneTyper instances) reuse it.
-        from .engine import _gene_shared_state
-        proj_cache = _gene_shared_state(self.gene).setdefault(
-            "fold_proj_cache", {})
-        sub_hts = []
-        ht_seg_l = []
-        kmax = 1
-        for u, ht_str in enumerate(hts_sorted):
-            packs = None if "nv" in ht_str else proj_cache.get(ht_str)
-            if packs is None:
-                left, right, ops = typer.count_ht(ht_str, novel)
-                packs = [(0, left, right,
-                          [op.var_idx for op in ops])]
-                packs += [(1, l, r, [op.var_idx for op in o]) for l, r, o in
-                          get_exon_haplotypes((left, right, ops),
-                                              gene.exons)]
-                packs += [(2, l, r, [op.var_idx for op in o]) for l, r, o in
-                          get_exon_haplotypes((left, right, ops),
-                                              gene.primary_exons)]
-                if "nv" not in ht_str and len(proj_cache) < 200_000:
-                    proj_cache[ht_str] = packs
-            for level, l, r, vs in packs:
-                kmax = max(kmax, sum(1 for v in vs if v >= 0))
-                sub_hts.append((l, r, vs))
-                ht_seg_l.append(level * U + u)
-        if kmax > MAX_FOLD_VARS:
-            return None        # pathological ht; host fallback
-        K = _pow2(kmax, lo=MAX_HT_VARS)
-        S = len(sub_hts)
-        Sp = _pow2(S)
-        lefts, rights, vars_ = self.dc.pack_hts(sub_hts, k=K)
-        lefts = np.pad(lefts, (0, Sp - S))
-        rights = np.pad(rights, (0, Sp - S))
-        vars_ = np.pad(vars_, ((0, Sp - S), (0, 0)),
-                       constant_values=gene.n_vars)
-        ht_seg = np.full(Sp, 3 * U, np.int32)    # padding segment
-        ht_seg[:S] = ht_seg_l
+            # ---- sub-ht prep: full + exon + primary projections ---- #
+            # catalog-only hts project identically across runs of one gene;
+            # novel-var hts ('nv' tokens) depend on the run's registry and
+            # are never cached.  The cache lives on the gene's shared typing
+            # state so repeat runs (and fresh GeneTyper instances) reuse it.
+            from .engine import _gene_shared_state
+            proj_cache = _gene_shared_state(self.gene).setdefault(
+                "fold_proj_cache", {})
+            sub_hts = []
+            ht_seg_l = []
+            kmax = 1
+            for u, ht_str in enumerate(hts_sorted):
+                packs = None if "nv" in ht_str else proj_cache.get(ht_str)
+                if packs is None:
+                    left, right, ops = typer.count_ht(ht_str, novel)
+                    packs = [(0, left, right,
+                              [op.var_idx for op in ops])]
+                    packs += [(1, l, r, [op.var_idx for op in o])
+                              for l, r, o in get_exon_haplotypes(
+                                  (left, right, ops), gene.exons)]
+                    packs += [(2, l, r, [op.var_idx for op in o])
+                              for l, r, o in get_exon_haplotypes(
+                                  (left, right, ops), gene.primary_exons)]
+                    if "nv" not in ht_str and len(proj_cache) < 200_000:
+                        proj_cache[ht_str] = packs
+                for level, l, r, vs in packs:
+                    kmax = max(kmax, sum(1 for v in vs if v >= 0))
+                    sub_hts.append((l, r, vs))
+                    ht_seg_l.append(level * U + u)
+            if kmax > MAX_FOLD_VARS:
+                return None        # pathological ht; host fallback
+            K = _pow2(kmax, lo=MAX_HT_VARS)
+            S = len(sub_hts)
+            Sp = _pow2(S)
+            lefts, rights, vars_ = self.dc.pack_hts(sub_hts, k=K)
+            lefts = np.pad(lefts, (0, Sp - S))
+            rights = np.pad(rights, (0, Sp - S))
+            vars_ = np.pad(vars_, ((0, Sp - S), (0, 0)),
+                           constant_values=gene.n_vars)
+            ht_seg = np.full(Sp, 3 * U, np.int32)    # padding segment
+            ht_seg[:S] = ht_seg_l
 
-        # ---- read-group flat rows: one flat per level stacked, sharing
-        # group ids ---- #
-        ht_idx = {h: i for i, h in enumerate(hts_sorted)}
-        flat = []
-        gseg = []
-        weights = np.fromiter((g[0] for g in grouped.values()),
-                              np.int64, len(grouped))
-        G = len(grouped)
-        for gi, (_w, positive_hts) in enumerate(grouped.values()):
-            for h in positive_hts:
-                flat.append(ht_idx[h])
-                gseg.append(gi)
-        F = len(flat)
-        Fp = _pow2(F)
-        flat = np.pad(np.asarray(flat, np.int32), (0, Fp - F))
-        gseg_np = np.full(Fp, G, np.int32)       # padding group
-        gseg_np[:F] = gseg
+            # ---- read-group flat rows: one flat per level stacked, sharing
+            # group ids ---- #
+            ht_idx = {h: i for i, h in enumerate(hts_sorted)}
+            flat = []
+            gseg = []
+            weights = np.fromiter((g[0] for g in grouped.values()),
+                                  np.int64, len(grouped))
+            G = len(grouped)
+            for gi, (_w, positive_hts) in enumerate(grouped.values()):
+                for h in positive_hts:
+                    flat.append(ht_idx[h])
+                    gseg.append(gi)
+            F = len(flat)
+            Fp = _pow2(F)
+            flat = np.pad(np.asarray(flat, np.int32), (0, Fp - F))
+            gseg_np = np.full(Fp, G, np.int32)       # padding group
+            gseg_np[:F] = gseg
 
-        levels = [0, 1, 2] if typer.opts.family == "hla" else [0]
-        include = np.zeros((len(levels), A), dtype=bool)
-        include[0] = True
-        if len(levels) > 1:
-            include[1] = typer.allele_rep_mask
-            include[2] = typer.primary_rep_mask
+            levels = [0, 1, 2] if typer.opts.family == "hla" else [0]
+            include = np.zeros((len(levels), A), dtype=bool)
+            include[0] = True
+            if len(levels) > 1:
+                include[1] = typer.allele_rep_mask
+                include[2] = typer.primary_rep_mask
 
-        # all levels share one gather + segment-sum: concatenate each
-        # level's flat rows (offset into the stacked level-mask matrix)
-        # and give each level its own group-id range
-        nlev = len(levels)
-        flat_all = np.concatenate(
-            [flat[:F] + li * U for li in levels]
-            + [np.full(Fp * nlev - F * nlev, 3 * U, np.int32)])
-        gseg_all = np.concatenate(
-            [gseg_np[:F] + li * G for li in levels]
-            + [np.full(Fp * nlev - F * nlev, G * nlev, np.int32)])
+            # all levels share one gather + segment-sum: concatenate each
+            # level's flat rows (offset into the stacked level-mask matrix)
+            # and give each level its own group-id range
+            nlev = len(levels)
+            flat_all = np.concatenate(
+                [flat[:F] + li * U for li in levels]
+                + [np.full(Fp * nlev - F * nlev, 3 * U, np.int32)])
+            gseg_all = np.concatenate(
+                [gseg_np[:F] + li * G for li in levels]
+                + [np.full(Fp * nlev - F * nlev, G * nlev, np.int32)])
 
-        TRACE.add("type.count_fold.prep", _time.perf_counter() - _t_prep0)
         # dispatched FLOPs for the bench's MFU, hgtpu's five terms: the
         # deletion range-count product, the AND-reduce (u32 ops), the
         # level and group segment sums, the class extraction
@@ -182,7 +179,7 @@ class DeviceFold:
                 n_cap=cap)
             # single fetch: unique class rows, per-class weights, order
             # keys, totals and the unique count packed into ONE buffer
-            buf_h = buf.cpu().numpy().view(np.uint32)
+            buf_h = to_host(buf).view(np.uint32)
             at = cap * W32
             rows_h = buf_h[:at].reshape(cap, W32)
             uw_h = buf_h[at:at + cap].astype(np.int64)
@@ -194,9 +191,9 @@ class DeviceFold:
                 # overflow: re-fetch through the exact two-step path
                 first_rows = torch.nonzero(is_first).squeeze(1)
                 Un = int(first_rows.shape[0])
-                rows_h = fs[first_rows].cpu().numpy().view(np.uint32)
-                uw_h = uw[:Un].cpu().numpy().astype(np.int64)
-                min_idx_h = min_idx[:Un].cpu().numpy().astype(np.int64)
+                rows_h = to_host(fs[first_rows]).view(np.uint32)
+                uw_h = to_host(uw[:Un]).astype(np.int64)
+                min_idx_h = to_host(min_idx[:Un]).astype(np.int64)
             else:
                 rows_h = rows_h[:Un]
                 uw_h = uw_h[:Un]

@@ -1,5 +1,6 @@
-# Port of hgtpu/typer/em.py: the numpy solver is a copy; the dense device
-# EM (_em_dense, em_solve_dense) runs on torch.
+# Port of hgtpu/typer/em.py: the numpy solver is a copy, its two halves
+# under the TRACE stages em.build and em.solve; the dense device EM
+# (_em_dense, em_solve_dense) runs on torch.
 """EM abundance solver with SQUAREM acceleration.
 
 Faithful port of the reference's single_abundance / next_prob / prob_diff
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..utils.trace import TRACE
 
 
 def prob_diff(prob1: dict, prob2: dict) -> float:
@@ -40,66 +42,67 @@ def _single_abundance_np(cmpt_counts: dict, remove_low: bool,
     initialization, SQUAREM step, pruning schedule, and tie ordering
     (allele first-appearance order; stable sort).  Differences are
     limited to float summation order (<1e-15/step)."""
-    alleles = []
-    index = {}
-    rows, cols = [], []
-    counts = []
-    for ci, (cmpt, count) in enumerate(cmpt_counts.items()):
-        for a in cmpt.split("-"):
-            i = index.get(a)
-            if i is None:
-                i = len(alleles)
-                index[a] = i
-                alleles.append(a)
-            rows.append(ci)
-            cols.append(i)
-        counts.append(float(count))
-    A, C = len(alleles), len(counts)
-    M = np.zeros((C, A), dtype=np.float64)
-    M[rows, cols] = 1.0
-    cnt = np.asarray(counts)
-    use_len = bool(lengths)
-    inv_len = (np.array([1.0 / lengths[a] for a in alleles])
-               if use_len else None)
+    with TRACE.stage("em.build"):
+        alleles = []
+        index = {}
+        rows, cols = [], []
+        counts = []
+        for ci, (cmpt, count) in enumerate(cmpt_counts.items()):
+            for a in cmpt.split("-"):
+                i = index.get(a)
+                if i is None:
+                    i = len(alleles)
+                    index[a] = i
+                    alleles.append(a)
+                rows.append(ci)
+                cols.append(i)
+            counts.append(float(count))
+        A, C = len(alleles), len(counts)
+        M = np.zeros((C, A), dtype=np.float64)
+        M[rows, cols] = 1.0
+        cnt = np.asarray(counts)
+        use_len = bool(lengths)
+        inv_len = (np.array([1.0 / lengths[a] for a in alleles])
+                   if use_len else None)
+    with TRACE.stage("em.solve"):
+        def norm(p):
+            if use_len:
+                p = p * inv_len
+            return p / p.sum()
 
-    def norm(p):
-        if use_len:
-            p = p * inv_len
-        return p / p.sum()
+        def nxt_of(p):
+            denom = M @ p
+            with np.errstate(divide="ignore", invalid="ignore"):
+                w = np.where(denom > 0.0,
+                             cnt / np.where(denom > 0.0, denom, 1.0), 0.0)
+            return norm((M.T @ w) * p)
 
-    def nxt_of(p):
-        denom = M @ p
-        with np.errstate(divide="ignore", invalid="ignore"):
-            w = np.where(denom > 0.0, cnt / np.where(denom > 0.0, denom, 1.0),
-                         0.0)
-        return norm((M.T @ w) * p)
-
-    active = np.ones(A, dtype=bool)
-    p = norm(M.T @ (cnt / M.sum(axis=1)))
-    diff, it = 1.0, 0
-    while diff > 0.0001 and it < 1000:
-        n1 = nxt_of(p)
-        n2 = nxt_of(n1)
-        r = n1 - p
-        v = n2 - n1 - r
-        ssv = float(v @ v)
-        if ssv > 0.0:
-            gamma = -math.sqrt(float(r @ r) / ssv)
-            accel = np.maximum(0.0, p - 2 * gamma * r + gamma * gamma * v)
-            n1 = nxt_of(accel)
-        diff = float(np.abs(p - n1).sum())
-        p = n1
-        if it >= 10 and remove_low and p.any():
+        active = np.ones(A, dtype=bool)
+        p = norm(M.T @ (cnt / M.sum(axis=1)))
+        diff, it = 1.0, 0
+        while diff > 0.0001 and it < 1000:
+            n1 = nxt_of(p)
+            n2 = nxt_of(n1)
+            r = n1 - p
+            v = n2 - n1 - r
+            ssv = float(v @ v)
+            if ssv > 0.0:
+                gamma = -math.sqrt(float(r @ r) / ssv)
+                accel = np.maximum(0.0, p - 2 * gamma * r + gamma * gamma * v)
+                n1 = nxt_of(accel)
+            diff = float(np.abs(p - n1).sum())
+            p = n1
+            if it >= 10 and remove_low and p.any():
+                active &= p >= p.max() / 10.0
+                p = np.where(active, p, 0.0)
+            it += 1
+        if remove_low and p.any():
             active &= p >= p.max() / 10.0
             p = np.where(active, p, 0.0)
-        it += 1
-    if remove_low and p.any():
-        active &= p >= p.max() / 10.0
-        p = np.where(active, p, 0.0)
-    p = norm(p)
-    out = [[alleles[i], float(p[i])] for i in np.flatnonzero(active)]
-    out.sort(key=lambda x: x[1], reverse=True)
-    return out
+        p = norm(p)
+        out = [[alleles[i], float(p[i])] for i in np.flatnonzero(active)]
+        out.sort(key=lambda x: x[1], reverse=True)
+        return out
 
 
 def single_abundance(cmpt_counts: dict,

@@ -799,31 +799,29 @@ def type_gene(gene: GeneRef, read_alns, opts: TypingOptions = None,
     ht_cache = {}
 
     read_alns = list(read_alns)
-    _t_prep = TRACE.stage("type.prep")
-    _t_prep.__enter__()
-    # concordance is a pure function of the pair; resolve it once for both
-    # the pileup pass and the counting pass
-    conc_alns = [(read_id, _concordant(alns, opts))
-                 for read_id, alns in read_alns]
+    with TRACE.stage("type.prep"):
+        # concordance is a pure function of the pair; resolve it once for both
+        # the pileup pass and the counting pass
+        conc_alns = [(read_id, _concordant(alns, opts))
+                     for read_id, alns in read_alns]
 
-    # Pair-signature dedup, shared by the pileup and counting passes: a
-    # pair's pileup contribution and its positive ht set are pure
-    # functions of its alignments' (mate, pos, seq, nm) tuples, so
-    # duplicate pairs (tiled simulation, deep resequencing) fold into
-    # one weighted evaluation.  Assembly keeps per-read identity.
-    sig_groups = {}
-    if not opts.assembly:
-        for read_id, alns in conc_alns:
-            if alns is None:
-                continue
-            sig = tuple((a.mate, a.uid) if a.uid >= 0
-                        else (a.mate, a.pos, a.seq, a.nm) for a in alns)
-            hit = sig_groups.get(sig)
-            if hit is None:
-                sig_groups[sig] = [read_id, alns, 1]
-            else:
-                hit[2] += 1
-    _t_prep.__exit__(None, None, None)
+        # Pair-signature dedup, shared by the pileup and counting passes: a
+        # pair's pileup contribution and its positive ht set are pure
+        # functions of its alignments' (mate, pos, seq, nm) tuples, so
+        # duplicate pairs (tiled simulation, deep resequencing) fold into
+        # one weighted evaluation.  Assembly keeps per-read identity.
+        sig_groups = {}
+        if not opts.assembly:
+            for read_id, alns in conc_alns:
+                if alns is None:
+                    continue
+                sig = tuple((a.mate, a.uid) if a.uid >= 0
+                            else (a.mate, a.pos, a.seq, a.nm) for a in alns)
+                hit = sig_groups.get(sig)
+                if hit is None:
+                    sig_groups[sig] = [read_id, alns, 1]
+                else:
+                    hit[2] += 1
 
     # pass 1: pileup over all concordant alignments (no NM filter, as in
     # get_mpileup — typing_common.py:1059-1184)
@@ -906,53 +904,51 @@ def type_gene(gene: GeneRef, read_alns, opts: TypingOptions = None,
         hts_memo[k] = r
         return r
 
-    _t_hts = TRACE.stage("type.read_hts")
-    _t_hts.__enter__()
-    if not opts.assembly:
-        work = sig_groups.values()
-    else:
-        work = ([rid, alns, 1] for rid, alns in conc_alns
-                if alns is not None)
-    grouped = {}
-    for read_id, alns, w in work:
-        left_hts = set()
-        right_hts = set()
-        per_mate_hts = []
-        n_counted = 0
-        for a in alns:
-            if a.nm > opts.num_editdist:
-                continue
-            n_counted += 1
-            hts = memo_hts(a)
-            if hts is not None:
-                (left_hts if a.mate == "L" else right_hts).update(hts)
-                if opts.assembly:
-                    per_mate_hts.append((a, hts))
-            # equal-cost alternative spellings (STR periodicity) also
-            # contribute positive haplotypes
-            for alt in (a.alts or ()):
-                alt_hts = memo_hts(alt)
-                if alt_hts is not None:
-                    (left_hts if a.mate == "L"
-                     else right_hts).update(alt_hts)
-        num_reads += w * n_counted
-        if interdist is not None and interdist >= 0:
-            left_hts, right_hts = choose_pairs(
-                left_hts, right_hts, interdist,
-                None if opts.strict_pair_distance else gene)
-        positive_hts = left_hts | right_hts
-        if not positive_hts:
-            continue
-        num_pairs += w
-        if opts.assembly:
-            asm_reads.append((read_id, per_mate_hts))
-        key = frozenset(positive_hts)
-        hit = grouped.get(key)
-        if hit is None:
-            grouped[key] = [w, positive_hts]
+    with TRACE.stage("type.read_hts"):
+        if not opts.assembly:
+            work = sig_groups.values()
         else:
-            hit[0] += w
-    _t_hts.__exit__(None, None, None)
+            work = ([rid, alns, 1] for rid, alns in conc_alns
+                    if alns is not None)
+        grouped = {}
+        for read_id, alns, w in work:
+            left_hts = set()
+            right_hts = set()
+            per_mate_hts = []
+            n_counted = 0
+            for a in alns:
+                if a.nm > opts.num_editdist:
+                    continue
+                n_counted += 1
+                hts = memo_hts(a)
+                if hts is not None:
+                    (left_hts if a.mate == "L" else right_hts).update(hts)
+                    if opts.assembly:
+                        per_mate_hts.append((a, hts))
+                # equal-cost alternative spellings (STR periodicity) also
+                # contribute positive haplotypes
+                for alt in (a.alts or ()):
+                    alt_hts = memo_hts(alt)
+                    if alt_hts is not None:
+                        (left_hts if a.mate == "L"
+                         else right_hts).update(alt_hts)
+            num_reads += w * n_counted
+            if interdist is not None and interdist >= 0:
+                left_hts, right_hts = choose_pairs(
+                    left_hts, right_hts, interdist,
+                    None if opts.strict_pair_distance else gene)
+            positive_hts = left_hts | right_hts
+            if not positive_hts:
+                continue
+            num_pairs += w
+            if opts.assembly:
+                asm_reads.append((read_id, per_mate_hts))
+            key = frozenset(positive_hts)
+            hit = grouped.get(key)
+            if hit is None:
+                grouped[key] = [w, positive_hts]
+            else:
+                hit[0] += w
 
     # batch the per-ht compatibility masks through the device counter
     unique_hts = set()
@@ -976,71 +972,66 @@ def type_gene(gene: GeneRef, read_alns, opts: TypingOptions = None,
         with TRACE.stage("type.count_fold.device"):
             folded = typer.device_fold_run(hts_sorted, novel, grouped)
 
-    _t_stats = TRACE.stage("type.stats")
-    _t_stats.__enter__()
-    if folded is not None:
-        stats_levels = [full_stats, exon_stats, primary_stats] \
-            if opts.family == "hla" else [full_stats]
-        with TRACE.stage("type.stats.classes"):
-            # the device fold already deduplicated classes and aggregated
-            # weights (first-seen order preserved via min original row id)
-            for (rows, uweights, totals), st in zip(folded, stats_levels):
-                st.add_packed_batch(rows, uweights, totals)
-    elif grouped:
-        with TRACE.stage("type.count_masks.host"):
-            typer.ht_masks_batch_host(hts_sorted, novel, ht_cache)
-        ht_idx = {h: i for i, h in enumerate(hts_sorted)}
-        U = len(hts_sorted)
-        with TRACE.stage("type.stats.mask_fill"):
-            mask_f = np.empty((U, A), dtype=np.int32)
-            mask_e = np.empty((U, A), dtype=np.int32)
-            mask_p = np.empty((U, A), dtype=np.int32)
-            for i, h in enumerate(hts_sorted):
-                full, exon, primary = ht_cache[h]
-                mask_f[i] = full
-                mask_e[i] = exon
-                mask_p[i] = primary
-            weights = np.fromiter((g[0] for g in grouped.values()),
-                                  np.int64, len(grouped))
-            flat = []
-            starts = np.empty(len(grouped), dtype=np.int64)
-            at = 0
-            for gi, (_w, positive_hts) in enumerate(grouped.values()):
-                starts[gi] = at
-                for h in positive_hts:
-                    flat.append(ht_idx[h])
-                at += len(positive_hts)
-            flat = np.asarray(flat, dtype=np.int64)
-        if opts.family == "hla":
-            with TRACE.stage("type.stats.fold"):
-                fold_p = np.add.reduceat(mask_p[flat], starts, axis=0)
-                fold_e = np.add.reduceat(mask_e[flat], starts, axis=0)
+    with TRACE.stage("type.stats"):
+        if folded is not None:
+            stats_levels = [full_stats, exon_stats, primary_stats] \
+                if opts.family == "hla" else [full_stats]
             with TRACE.stage("type.stats.classes"):
-                primary_stats.add_reads_batch(fold_p, weights)
-                exon_stats.add_reads_batch(fold_e, weights)
-        with TRACE.stage("type.stats.fold"):
-            fold_f = np.add.reduceat(mask_f[flat], starts, axis=0)
-        with TRACE.stage("type.stats.classes"):
-            full_stats.add_reads_batch(fold_f, weights)
-
-    _t_stats.__exit__(None, None, None)
+                # the device fold already deduplicated classes and aggregated
+                # weights (first-seen order preserved via min original row id)
+                for (rows, uweights, totals), st in zip(folded, stats_levels):
+                    st.add_packed_batch(rows, uweights, totals)
+        elif grouped:
+            with TRACE.stage("type.count_masks.host"):
+                typer.ht_masks_batch_host(hts_sorted, novel, ht_cache)
+            ht_idx = {h: i for i, h in enumerate(hts_sorted)}
+            U = len(hts_sorted)
+            with TRACE.stage("type.stats.mask_fill"):
+                mask_f = np.empty((U, A), dtype=np.int32)
+                mask_e = np.empty((U, A), dtype=np.int32)
+                mask_p = np.empty((U, A), dtype=np.int32)
+                for i, h in enumerate(hts_sorted):
+                    full, exon, primary = ht_cache[h]
+                    mask_f[i] = full
+                    mask_e[i] = exon
+                    mask_p[i] = primary
+                weights = np.fromiter((g[0] for g in grouped.values()),
+                                      np.int64, len(grouped))
+                flat = []
+                starts = np.empty(len(grouped), dtype=np.int64)
+                at = 0
+                for gi, (_w, positive_hts) in enumerate(grouped.values()):
+                    starts[gi] = at
+                    for h in positive_hts:
+                        flat.append(ht_idx[h])
+                    at += len(positive_hts)
+                flat = np.asarray(flat, dtype=np.int64)
+            if opts.family == "hla":
+                with TRACE.stage("type.stats.fold"):
+                    fold_p = np.add.reduceat(mask_p[flat], starts, axis=0)
+                    fold_e = np.add.reduceat(mask_e[flat], starts, axis=0)
+                with TRACE.stage("type.stats.classes"):
+                    primary_stats.add_reads_batch(fold_p, weights)
+                    exon_stats.add_reads_batch(fold_e, weights)
+            with TRACE.stage("type.stats.fold"):
+                fold_f = np.add.reduceat(mask_f[flat], starts, axis=0)
+            with TRACE.stage("type.stats.classes"):
+                full_stats.add_reads_batch(fold_f, weights)
 
     # ------------------------------------------------------------------ #
     # Hierarchical abundance (ref: typing_core.py:1679-1789)
     # ------------------------------------------------------------------ #
-    _t_em = TRACE.stage("type.em")
-    _t_em.__enter__()
-    lengths = gene.allele_lengths()
-    full_cmpt = full_stats.cmpt_names()
-    exon_cmpt = exon_stats.cmpt_names()
-    primary_cmpt = primary_stats.cmpt_names()
+    with TRACE.stage("type.em"):
+        with TRACE.stage("em.build"):
+            lengths = gene.allele_lengths()
+            full_cmpt = full_stats.cmpt_names()
+            exon_cmpt = exon_stats.cmpt_names()
+            primary_cmpt = primary_stats.cmpt_names()
 
-    from .staging import staged_abundance
-    prob = staged_abundance(gene, opts, full_cmpt, exon_cmpt, primary_cmpt,
-                            typer.allele_rep_groups,
-                            typer.primary_rep_groups, lengths)
-
-    _t_em.__exit__(None, None, None)
+        from .staging import staged_abundance
+        prob = staged_abundance(gene, opts, full_cmpt, exon_cmpt, primary_cmpt,
+                                typer.allele_rep_groups,
+                                typer.primary_rep_groups, lengths)
 
     assembly_call = None
     contigs = None

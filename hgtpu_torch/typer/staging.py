@@ -1,4 +1,5 @@
-# Copy of hgtpu/typer/staging.py; only the imports differ.
+# Copy of hgtpu/typer/staging.py; the imports and restrict_cmpt's TRACE
+# stage differ.
 """Hierarchical EM staging policy — the ONE home of the
 exon-representative -> group-expansion -> full-length abundance
 hierarchy (ref: hisatgenotype_typing_core.py:1679-1789).
@@ -16,6 +17,7 @@ selection rule exist exactly once (VERDICT r3 item 6):
 """
 from __future__ import annotations
 
+from ..utils.trace import TRACE
 from .em import single_abundance
 
 # exon-stage winners are scanned in rank order; expansion stops at the
@@ -57,11 +59,12 @@ def restrict_cmpt(cmpt, alleles):
     re-keys Gene_cmpt rows onto the expanded set before the full-length
     EM, typing_core.py:1767-1780)."""
     out = {}
-    for cls, value in cmpt.items():
-        kept = [a for a in cls.split("-") if a in alleles]
-        if kept:
-            k = "-".join(kept)
-            out[k] = out.get(k, 0) + value
+    with TRACE.stage("em.build"):
+        for cls, value in cmpt.items():
+            kept = [a for a in cls.split("-") if a in alleles]
+            if kept:
+                k = "-".join(kept)
+                out[k] = out.get(k, 0) + value
     return out
 
 
