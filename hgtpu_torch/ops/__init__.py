@@ -1,4 +1,38 @@
 """The port's device operations and its hand-written kernels."""
+import contextlib
+import threading
+
+_capture = threading.local()
+
+
+def count_launch(fn):
+    """One launch of the hand kernel `fn`: counted on ``fn.launches``, or,
+    while this thread captures a CUDA graph (``launch_tape``), noted for
+    the graph's replays to count."""
+    tape = getattr(_capture, "tape", None)
+    if tape is None:
+        fn.launches += 1
+    else:
+        tape.append(fn)
+
+
+@contextlib.contextmanager
+def launch_tape():
+    """Inside, this thread's hand-kernel launches are captured, not run:
+    they are noted in the list it yields, and each replay of the capture
+    counts them with ``count_launches``."""
+    prev = getattr(_capture, "tape", None)
+    _capture.tape = tape = []
+    try:
+        yield tape
+    finally:
+        _capture.tape = prev
+
+
+def count_launches(tape):
+    """Count the launches a replayed capture holds (``launch_tape``)."""
+    for fn in tape:
+        fn.launches += 1
 
 
 def launch_counts():

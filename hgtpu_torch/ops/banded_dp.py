@@ -61,7 +61,7 @@ import torch
 
 from ..db.catalog import GeneRef, VT_SINGLE, VT_DELETION
 from .. import resolve_device
-from . import cuda_lib
+from . import count_launch, cuda_lib
 
 DNEG = 8          # max leftward drift (catalog/novel insertions)
 DPOS = 24         # max rightward drift (catalog/novel deletions)
@@ -396,8 +396,8 @@ def _launch(fn, name, reads, *args):
             *args, cost.data_ptr(), over.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     cuda_lib.check(err, name)
-    fn.launches += 1
-    banded_costs.launches += 1
+    count_launch(fn)
+    count_launch(banded_costs)
     return cost, over
 
 

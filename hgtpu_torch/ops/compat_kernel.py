@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda_lib
+from . import count_launch, cuda_lib
 
 # the slab kernel's constants (csrc/and_reduce.cu)
 KC = 16                  # vars columns per ring stage
@@ -138,7 +138,7 @@ def _launch(fn, links, vars_, out_pitch, *extra):
             out.data_ptr(), out_pitch, *extra,
             torch.cuda.current_stream().cuda_stream)
     cuda_lib.check(err, fn.__name__)
-    fn.launches += 1
+    count_launch(fn)
     return out[:, :W]
 
 

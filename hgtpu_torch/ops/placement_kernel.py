@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda_lib
+from . import count_launch, cuda_lib
 
 _PAD_CODE = 5      # outside [0, 5): scores 0 against any PWM column
 
@@ -108,7 +108,7 @@ def placement_scores(pwm_ext: torch.Tensor,
             reads.shape[1], out.data_ptr(), P1,
             torch.cuda.current_stream().cuda_stream)
     cuda_lib.check(err, "placement_scores")
-    placement_scores.launches += 1
+    count_launch(placement_scores)
     return out
 
 

@@ -28,6 +28,11 @@ tensor on a one-shard mesh, else a ``sharded.Sharded``):
             (``compat_mxu``), and the on-device class dedup
             (``_count_multi[(m, T)]``).
 
+On a mesh of one local CUDA shard ``count_classes`` replays the three
+passes as CUDA graphs, one per pass and padded shape
+(``graphs.PassGraphs``): the same kernels on the same inputs, without
+the host issuing each launch.
+
 Beside them, hgtpu's legacy ungated programs (``_count_single``,
 ``_count_pairs``, ``_debug``: place, spell and count in one pass, no
 pileup gate) feed the staged device EM (``_em_steps``), the front door
@@ -44,6 +49,7 @@ from __future__ import annotations
 
 import functools
 import os
+import threading
 
 import numpy as np
 import torch
@@ -54,6 +60,7 @@ from .. import resolve_device
 from ..ops.placement import backbone_pwm, correlate_scores, encode_reads
 from ..typer.device_count import DeviceCounter
 from ..typer.device_fold import _M32, _mul32, _pow2, _to_i32
+from .graphs import PassGraphs, outside_graph
 from .sharded import REP, SHARD, Mesh, Replicated
 
 MAX_SNP_ALTS = 3    # catalog alts per backbone position (A/C/G/T minus ref)
@@ -539,8 +546,9 @@ class ShardedTyper:
                 pwm_ext = tabs[0]
                 ind_pos_t = tabs[4]
                 W = reads.shape[1]
-                s_f = correlate_scores(pwm_ext, reads)
-                s_r = correlate_scores(pwm_ext, _rc(reads))
+                # K1 out of the pass graphs: each launch a Python call
+                s_f = outside_graph(correlate_scores, pwm_ext, reads)
+                s_r = outside_graph(correlate_scores, pwm_ext, _rc(reads))
 
                 # top-2 via max/argmax + masked second max; torch.argmax
                 # returns the first maximum, as jnp.argmax does
@@ -565,6 +573,25 @@ class ShardedTyper:
                 hi = _ss(ind_pos_t[:D], s0 + W + max_shift, right=True)
                 return s0, use_r, second < best, hi - lo
 
+            def hyp_columns(n_single, pair_combos):
+                """The hypothesis columns of one spelling: straight, then
+                (prefix, suffix) per single candidate, then 3 anchor
+                modes per pair combo, each as (candidate slot of ca, of
+                cb (None: the sentinel row D), anchor code, is a pair).
+                Anchor codes: 0 = s0, 1 = s0 - sh_a, 2 = s0 - sh_a - sh_b."""
+                cols = [(None, None, 0, False)]
+                cols += [(c, None, 0, False) for c in range(n_single)]
+                cols += [(c, None, 2, False) for c in range(n_single)]
+                cols += [(u, v, anc, True) for (u, v) in pair_combos
+                         for anc in (0, 1, 2)]
+                if len(cols) == 1:
+                    # keep H >= 2 so the top-2 is well-formed: one dud
+                    # column (invalid, score -1, never ties)
+                    cols.append((None, None, 0, True))
+                return cols
+
+            # (anchor codes, is-pair flags) [1, H] of every spelling the
+            # programs run, keyed by (n_single, pair_combos); filled below
             hyp_cols = {}
 
             def mate_spell(tabs, reads, placed=None, pair_combos=(),
@@ -612,47 +639,18 @@ class ShardedTyper:
                 cand = torch.where(
                     ind_pos[cand.long()] <= s0[:, None] + W + max_shift,
                     cand, torch.full_like(cand, D))                  # [n, C]
-                # hypothesis columns: straight, then (prefix, suffix) per
-                # single candidate, then 3 anchor modes per pair combo.
-                # anchor codes: 0 = s0, 1 = s0 - sh_a, 2 = s0 - sh_a - sh_b
                 sent_col = torch.full((n, 1), D, dtype=torch.int32,
                                       device=dev)
-                ca_cols = [sent_col]
-                cb_cols = [sent_col]
-                anc_codes = [0]
-                is_pair = [False]
-                for c in range(n_single):
-                    ca_cols.append(cand[:, c:c + 1])
-                    cb_cols.append(sent_col)
-                    anc_codes.append(0)
-                    is_pair.append(False)
-                for c in range(n_single):
-                    ca_cols.append(cand[:, c:c + 1])
-                    cb_cols.append(sent_col)
-                    anc_codes.append(2)
-                    is_pair.append(False)
-                for (u, v) in pair_combos:
-                    for anc in (0, 1, 2):
-                        ca_cols.append(cand[:, u:u + 1])
-                        cb_cols.append(cand[:, v:v + 1])
-                        anc_codes.append(anc)
-                        is_pair.append(True)
-                if len(ca_cols) == 1:
-                    # keep H >= 2 so the top-2 is well-formed: one dud
-                    # column (invalid, score -1, never ties)
-                    ca_cols.append(sent_col)
-                    cb_cols.append(sent_col)
-                    anc_codes.append(0)
-                    is_pair.append(True)
-                ca = torch.cat(ca_cols, 1)                           # [n, H]
-                cb = torch.cat(cb_cols, 1)
-                # per-column constants, copied to the device once per tier
-                cols_key = (n_single, pair_combos)
-                if cols_key not in hyp_cols:
-                    hyp_cols[cols_key] = (
-                        i32(anc_codes)[None, :],
-                        torch.tensor(is_pair, device=dev)[None, :])
-                anc, pair_col = hyp_cols[cols_key]
+
+                def col(slot):
+                    return sent_col if slot is None \
+                        else cand[:, slot:slot + 1]
+
+                cols = hyp_columns(n_single, pair_combos)
+                ca = torch.cat([col(c[0]) for c in cols], 1)         # [n, H]
+                cb = torch.cat([col(c[1]) for c in cols], 1)
+                # per-column constants, on the device since the build
+                anc, pair_col = hyp_cols[n_single, pair_combos]
                 H = ca.shape[1]
                 cal, cbl = ca.long(), cb.long()
 
@@ -1619,6 +1617,13 @@ class ShardedTyper:
             fused_prs = tuple((u, v) for u in range(fused_ns)
                               for v in range(u + 1, fused_ns))
             self._fused_H = 1 + 2 * fused_ns + 3 * len(fused_prs)
+            # the legacy programs' spelling, the tiers', the fused one's
+            for ns, prs in ((max_indel_cand, ()),) + self._tier_cfg + (
+                    (fused_ns, fused_prs),):
+                cols = hyp_columns(ns, prs)
+                hyp_cols[ns, prs] = (
+                    i32([c[2] for c in cols])[None, :],
+                    torch.tensor([c[3] for c in cols], device=dev)[None, :])
 
             def spell_fused_single(*args):
                 tabs = args[:n_tables]
@@ -1708,6 +1713,11 @@ class ShardedTyper:
         # spell pass fetches ONE array: [n_shards, sum of widths]
         self._combine_bufs = mesh.shard_map(
             lambda d: self._progs[str(d)]["combine"], None, S)
+        # count_classes' passes as CUDA graphs where they are valid (one
+        # local CUDA shard, one rank), else eager; the lock keeps one call
+        # at a time on the graphs' static tensors
+        self._graphs = PassGraphs.for_mesh(mesh)
+        self._graph_lock = threading.Lock()
 
     # ------------------------------------------------------------------ #
     # host side: a copy of hgtpu's, with torch transfers
@@ -1769,6 +1779,19 @@ class ShardedTyper:
         """An int32 device buffer as hgtpu's uint32 host array."""
         return to_host(t).view(np.uint32)
 
+    def _pass(self, key, pool, prog, *inputs):
+        """The pass program `prog` (program key `key`) over this typer's
+        tables and `inputs`: host arrays, or device tensors an earlier
+        pass of the same call returned.  Replayed from the graph cache
+        where graphs engage, else run eagerly.  `pool` names the graphs'
+        memory pool: place, each spell tier and count take their own, as
+        no two passes of one call may share one."""
+        if self._graphs is not None:
+            return self._graphs.run(key, pool, prog, self._tables, inputs)
+        return prog(*self._tables, *(
+            self._dev(a) if isinstance(a, np.ndarray) else a
+            for a in inputs))
+
     def count_classes(self, r1_codes: np.ndarray, r2_codes=None,
                       bucket: bool = True, merge_pileup=None,
                       overlap=None):
@@ -1790,7 +1813,23 @@ class ShardedTyper:
         host-side and returns the merged (host-full) pileup; the count
         pass then gates and counts against it.  When None, the count
         pass gates against the device pileup unchanged.  `overlap()`
-        runs on the host while the count pass is in flight."""
+        runs on the host while the count pass is in flight.
+
+        On one local CUDA shard the passes replay as CUDA graphs
+        (``graphs.PassGraphs``), with the same kernels and results."""
+        if self._graphs is None:
+            return self._count_classes(r1_codes, r2_codes, bucket,
+                                       merge_pileup, overlap)
+        with self._graph_lock:
+            self._graphs.begin()
+            try:
+                return self._count_classes(r1_codes, r2_codes, bucket,
+                                           merge_pileup, overlap)
+            finally:
+                self._graphs.end()
+
+    def _count_classes(self, r1_codes, r2_codes, bucket, merge_pileup,
+                       overlap):
         if self.mesh.world > 1:
             # the tier choice and the overflow refetch depend on each
             # rank's data, so the ranks' collectives would not line up;
@@ -1818,12 +1857,11 @@ class ShardedTyper:
                 p2f = self._pad(r2_codes, bucket) if n_mates == 2 else None
                 with TRACE.stage("pass.dispatch"):
                     if n_mates == 1:
-                        pl = self._place_single_p(*self._tables,
-                                                  self._dev(p1f))
+                        pl = self._pass("place_single", "place",
+                                        self._place_single_p, p1f)
                     else:
-                        pl = self._place_pairs_p(*self._tables,
-                                                 self._dev(p1f),
-                                                 self._dev(p2f))
+                        pl = self._pass("place_pairs", "place",
+                                        self._place_pairs_p, p1f, p2f)
                 pl = to_host(pl)[:n].T
         with TRACE.stage("device.spell"):
             if fuse:
@@ -1832,12 +1870,9 @@ class ShardedTyper:
                 self._count_work(n_pad_t, n_mates)
                 c2t = self._pad(r2_codes, bucket) if n_mates == 2 else None
                 with TRACE.stage("pass.dispatch"):
-                    if n_mates == 1:
-                        aout = self._spell_fused[1](*self._tables,
-                                                    self._dev(c1t))
-                    else:
-                        aout = self._spell_fused[2](
-                            *self._tables, self._dev(c1t), self._dev(c2t))
+                    aout = self._pass(("fused", n_mates), ("spell", 0),
+                                      self._spell_fused[n_mates],
+                                      *[c1t, c2t][:n_mates])
                 tinfo = [(0, np.arange(n), n_pad_t, aout)]
             else:
                 tier = np.clip(pl[3], 0, 2)
@@ -1856,19 +1891,20 @@ class ShardedTyper:
                     def padi(row, n_pad_t=n_pad_t, idx=idx):
                         out = np.zeros(n_pad_t, np.int32)
                         out[:len(idx)] = row[idx]
-                        return self._dev(out)
+                        return out
 
                     c2t = self._pad(r2_codes[idx], bucket) \
                         if n_mates == 2 else None
                     with TRACE.stage("pass.dispatch"):
                         if n_mates == 1:
-                            aout = self._spell_single_t[t](
-                                *self._tables, self._dev(c1t),
-                                padi(pl[0]), padi(pl[1]), padi(pl[2]))
+                            aout = self._pass(
+                                ("spell_single", t), ("spell", t),
+                                self._spell_single_t[t],
+                                c1t, padi(pl[0]), padi(pl[1]), padi(pl[2]))
                         else:
-                            aout = self._spell_pairs_t[t](
-                                *self._tables, self._dev(c1t),
-                                self._dev(c2t),
+                            aout = self._pass(
+                                ("spell_pairs", t), ("spell", t),
+                                self._spell_pairs_t[t], c1t, c2t,
                                 padi(pl[0]), padi(pl[1]), padi(pl[2]),
                                 padi(pl[4]), padi(pl[5]), padi(pl[6]))
                     tinfo.append((t, idx, n_pad_t, aout))
@@ -1935,14 +1971,14 @@ class ShardedTyper:
         # -- pass B: ONE call gates + counts + packs every tier's rows
         # against the final pileup -- #
         with TRACE.stage("device.countB"):
-            pin = self._dev(np.ascontiguousarray(
-                final_pile, dtype=np.int32).reshape(-1))
+            pin = np.ascontiguousarray(final_pile, dtype=np.int32).reshape(-1)
             T = len(tinfo)
             flat_state = [a for (_t, _i, _np_, aout) in tinfo
                           for a in aout[1:]]
             with TRACE.stage("pass.dispatch"):
-                out = self._count_multi[(n_mates, T)](*self._tables, pin,
-                                                      *flat_state)
+                out = self._pass(("count_multi", n_mates, T), "count",
+                                 self._count_multi[(n_mates, T)], pin,
+                                 *flat_state)
             n_loc_list = [n_pad_t // ndev for (_t, _i, n_pad_t, _a) in tinfo]
             n_loc = sum(n_loc_list)
             cap = min(self._class_cap, NLEV * n_loc,

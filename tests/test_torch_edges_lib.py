@@ -743,11 +743,12 @@ def test_trace_report_renders_as_hgtpu():
 
 # the stages the port's TRACE records beyond hgtpu's (PERF.md section 3):
 # each typing call's root, the EM's input and its iterations, the
-# passes' dispatch, the host's waits on device fetches, and verify.prep's
-# sub-steps
+# passes' dispatch and their CUDA graphs' captures, the host's waits on
+# device fetches, and verify.prep's sub-steps
 PORT_ONLY_STAGES = {"call.type_reads", "em.build", "em.solve",
-                    "pass.dispatch", "sync.fetch", "verify.prep.proposals",
-                    "verify.prep.bound", "verify.prep.filter"}
+                    "pass.dispatch", "pass.capture", "sync.fetch",
+                    "verify.prep.proposals", "verify.prep.bound",
+                    "verify.prep.filter"}
 
 
 def test_trace_collects_typing_stages_as_hgtpu():

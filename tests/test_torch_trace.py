@@ -325,3 +325,47 @@ def test_benchmark_reader_of_the_program_calls(sample, metric, stage):
     # nothing ran in an empty window
     t = time.perf_counter()
     assert reader.read(dict(window=(t, t), samples=2, spans=[])) is None
+
+
+def test_benchmark_reader_of_the_pass_graph_hit_share(sample, monkeypatch):
+    """pass_graph_hit_pct: 100 (1 - captures / dispatches) over the
+    window's calls, with a stub capturer standing in for CUDA graphs on
+    the CPU: the first call captures every pass, the second replays."""
+    from hgtpu_torch.parallel.graphs import Card, PassGraphs
+    from hgtpu_torch.parallel.production import _shared_sharded_typer
+    from hgtpu_torch.parallel.sharded import Mesh
+    from hgtpu_torch.typer import TypingOptions
+    from test_torch_pass_graphs import Stub
+
+    reader = load(os.path.join(BENCH, "layer_metrics",
+                               "pass_graph_hit_pct.py"),
+                  "bench_metric_pass_graph_hit_pct")
+    st = _shared_sharded_typer(sample[0], TypingOptions(device_typing="on"),
+                               Mesh([torch.device("cpu")]), 100)
+    assert st._graphs is None
+    # the eager passes: dispatches and no capture
+    t0 = time.perf_counter()
+    type_once(sample)
+    assert reader.read(dict(window=(t0, time.perf_counter()), samples=1,
+                            spans=[])) == 100.0
+    st._graphs = PassGraphs(Card(10 ** 9, Stub()))
+    try:
+        t0 = time.perf_counter()
+        calls = [type_once(sample)[1] for _ in range(2)]
+        window = (t0, time.perf_counter())
+    finally:
+        st._graphs = None
+    disp = sum(c["stages"]["pass.dispatch"]["n"] for c in calls)
+    caps = calls[0]["stages"]["pass.capture"]["n"]
+    assert caps == calls[0]["stages"]["pass.dispatch"]["n"]
+    assert "pass.capture" not in calls[1]["stages"]
+    got = reader.read(dict(window=window, samples=2, spans=[]))
+    assert got == pytest.approx(100.0 * (1 - caps / disp)) == 50.0
+    t = time.perf_counter()
+    assert reader.read(dict(window=(t, t), samples=2, spans=[])) is None
+    # a program without pass graphs has no share to read
+    real = importlib.util.find_spec
+    monkeypatch.setattr(importlib.util, "find_spec", lambda name, *a: None
+                        if name == "hgtpu_torch.parallel.graphs"
+                        else real(name, *a))
+    assert reader.read(dict(window=window, samples=2, spans=[])) is None
