@@ -16,6 +16,24 @@ gaps) the way IPD-IMGT/HLA and HISAT-genotype's builder present it:
 - no two alleles have the same row, as no two catalogued alleles have
   the same sequence.
 
+A configuration's genes share its top-level layout; an entry of its
+`genes` list may carry any layout key of its own (LAYOUT), which then
+replaces the top-level one for that gene alone, so a panel can give its
+class II genes their own lengths, exons and allele counts.
+
+Paralogs: an entry may name `paralog_of`, an earlier gene of the list,
+and a `divergence` in [0, 1).  Its ancestral backbone is then the named
+gene's, cut to its own length or extended with bases drawn from its own
+seed, with that share of its positions substituted from its own seed;
+its events, lineages and alleles are drawn from its own seed as any
+gene's are.  This models HLA class I (A, B, C) and the class II beta
+chains (DQB1, DRB1) as duplicates of one ancestral gene that have
+drifted apart: a read from one of them may match another exactly,
+which is what makes a router send it to several genes and the NH==1
+rule (reference.py) decide between them.  Without `paralog_of` a gene's
+draws are made in the order they always were, so a configuration
+without it gives the same catalog as before the key existed.
+
 Samples are tiled from the MSA rows themselves, never from a built
 catalog, so the yardstick does not depend on the program under test.
 """
@@ -104,13 +122,30 @@ def _graft(mat, full, spans):
     return out
 
 
+def backbone(seed, length, parent=None, divergence=0.0):
+    """(ancestral backbone as codes 0-3, the gene's generator after
+    drawing it).  `parent` is the backbone of the gene this one is a
+    paralog of (module doc), None for a gene of its own."""
+    rng = np.random.default_rng(seed)
+    if parent is None:
+        return rng.integers(0, 4, length), rng
+    if not 0.0 <= divergence < 1.0:
+        raise ValueError("divergence %r is not in [0, 1)" % divergence)
+    anc = np.concatenate([parent[:length], rng.integers(
+        0, 4, max(length - len(parent), 0))])
+    n = int(round(divergence * length))
+    pos = rng.choice(length, n, replace=False)
+    anc[pos] = (anc[pos] + rng.integers(1, 4, n)) % 4
+    return anc, rng
+
+
 def hla_msa(gene, length, exons, primary_exons, groups, n_alleles,
             full_frac, n_snp, n_del, n_ins, lineage_frac, private_mean,
-            partial_exons, seed):
+            partial_exons, seed, parent=None, divergence=0.0):
     """dict(names, rows, ref_allele, exons, primary_exon_idx, partial)
-    of one gene; the arguments are a configuration's (module doc)."""
-    rng = np.random.default_rng(seed)
-    anc = rng.integers(0, 4, length)
+    of one gene; the arguments are a configuration's (module doc), and
+    `parent`, `divergence` those of `backbone`."""
+    anc, rng = backbone(seed, length, parent, divergence)
     events = _events(rng, length, n_snp, n_del, n_ins, anc)
     E, G, A = len(events), len(groups), n_alleles
     lineage = rng.random(E) < lineage_frac
@@ -170,15 +205,25 @@ def hla_msa(gene, length, exons, primary_exons, groups, n_alleles,
                 partial={names[a] for a in range(A) if not full[a]})
 
 
+LAYOUT = ("length", "exons", "primary_exons", "partial_exons", "groups",
+          "n_alleles", "full_frac", "n_snp", "n_del", "n_ins",
+          "lineage_frac", "private_mean")
+
+
 def catalog_specs(cfg):
-    """{gene: MSA spec} for a configuration file's `genes` list."""
-    out = {}
+    """{gene: MSA spec} for a configuration file's `genes` list: each
+    gene's layout keys from its own entry, else from the top level."""
+    out, anc = {}, {}
     for g in cfg["genes"]:
-        out[g["name"]] = hla_msa(
-            g["name"], seed=g["seed"], **{k: cfg[k] for k in (
-                "length", "exons", "primary_exons", "groups", "n_alleles",
-                "full_frac", "n_snp", "n_del", "n_ins", "lineage_frac",
-                "private_mean", "partial_exons")})
+        name = g["name"]
+        layout = {k: g[k] if k in g else cfg[k] for k in LAYOUT}
+        parent = g.get("paralog_of")
+        if parent is not None and parent not in anc:
+            raise ValueError("%s: paralog_of %r names no earlier gene"
+                             % (name, parent))
+        kw = dict(parent=anc.get(parent), divergence=g.get("divergence", 0.0))
+        anc[name] = backbone(g["seed"], layout["length"], **kw)[0]
+        out[name] = hla_msa(name, seed=g["seed"], **layout, **kw)
     return out
 
 

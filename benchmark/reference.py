@@ -27,7 +27,18 @@ get_exon_haplotypes, add_stat, single_abundance):
   per group of equal exonic variants (the first by name), and at the
   primary level one per group of the exon level's alleles;
 - abundance: the exon-level EM, expansion of the winning groups, then
-  the length-normalised full-length EM over the expanded alleles.
+  the length-normalised full-length EM over the expanded alleles;
+- a read that places exactly in two genes or more of a multi-gene
+  configuration is dropped, as HISAT-genotype drops an alignment with
+  NH > 1 (typing_core.py:846-848); the port applies the same rule by
+  cost in FamilyAligner.align_batch (hgtpu_torch/align/family.py);
+- a pair is typed only when both mates place, in one gene, within
+  MAX_FRAGMENT: a pair one of whose mates the NH==1 rule dropped is
+  dropped whole, as the port's type_family treats it (it groups each
+  gene's surviving mates by fragment, and type_gene's concordance
+  filter, hgtpu_torch/typer/engine.py:_concordant, drops a fragment
+  that lacks a mate unless allow_discordant is set, which the typing
+  options leave off).
 
 Not modelled: the reference aligner's trimming of read ends that an
 alternative haplotype could explain (it makes a few pairs compatible
@@ -227,9 +238,14 @@ def _pack(codes: np.ndarray, k: int) -> np.ndarray:
 
 
 class Placer:
-    """Exact placement of reads over every allele of every gene."""
+    """Exact placement of reads over every allele of every gene.  With
+    two genes or more a read that places exactly in more than one gene
+    is dropped (NH==1, module doc); with one gene the first exact hit
+    is kept and the search stops there."""
 
     def __init__(self, genes):
+        if len(genes) > 64:
+            raise ValueError("the placer masks genes in 64 bits")
         self.genes = genes
         keys, owner = [], []
         for gi, g in enumerate(genes):
@@ -244,6 +260,14 @@ class Placer:
         owner = np.concatenate(owner)
         order = np.argsort(keys, kind="stable")
         self.keys, self.owner = keys[order], owner[order]
+        if len(genes) > 1:
+            # per distinct k-mer the bit mask of the genes holding it:
+            # a read whose k-mers all lie in its hit's gene alone cannot
+            # place exactly in another
+            self.ukeys, first = np.unique(self.keys, return_index=True)
+            bit = np.left_shift(np.uint64(1),
+                                self.owner[:, 0].astype(np.uint64))
+            self.gene_bits = np.bitwise_or.reduceat(bit, first)
 
     def place(self, seqs):
         """[(gene index, allele, first, last) or None] per read
@@ -268,8 +292,26 @@ class Placer:
                         break
                 if found:
                     break
+            if found and len(self.genes) > 1 and \
+                    self._elsewhere(s, found[0], k[i], lo[i], hi[i]):
+                found = None
             out.append(found)
         return out
+
+    def _elsewhere(self, s, gi, keys, lo, hi):
+        """Whether read s also places exactly in a gene other than gi."""
+        u = np.minimum(np.searchsorted(self.ukeys, keys), len(self.ukeys) - 1)
+        bits = np.where(self.ukeys[u] == keys, self.gene_bits[u],
+                        np.uint64(0))
+        if not (np.bitwise_or.reduce(bits)
+                & ~(np.uint64(1) << np.uint64(gi))):
+            return False
+        for j in np.flatnonzero(hi > lo).tolist():
+            rows = self.owner[lo[j]:hi[j]]
+            for g, a, p in rows[rows[:, 0] != gi].tolist():
+                if self._verify(s, g, a, p - j):
+                    return True
+        return False
 
     def _verify(self, s, gi, a, st):
         """(gene, allele, first, last) of the read bases that lie in the

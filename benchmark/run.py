@@ -11,7 +11,8 @@ sample starts when the previous call has returned and synchronised.
 
 Set-up (timed as setup_s, from process start to the first timed sample):
 the program's catalogs (cached under benchmark/.cache/, keyed by the
-configuration and the program's catalog builder sources), the system on
+configuration, the program's catalog builder sources, the system module
+and the generator that lays the catalogs out), the system on
 cuda:0, WARMUP samples of the cell's own shapes (the first pays the
 program's table builds), then a pool of distinct samples, POOL_FACTOR
 times as many as the last warm-up's time fits into the window.  The
@@ -179,7 +180,8 @@ def run(args, device="cuda", bench_path=None, fault=None):
                          "bench_system_" + cfg["system"])
     specs = gen.catalog_specs(cfg)
     key = cache_key(cfg, *program_sources(),
-                    os.path.join(where, "systems", cfg["system"] + ".py"))
+                    os.path.join(where, "systems", cfg["system"] + ".py"),
+                    os.path.join(HERE, "gen.py"))
     catalog = cached(os.path.join(CACHE, "program-%s.pkl" % key),
                      lambda: system.catalog(cfg, specs))
     dev = torch.device(device + ":0" if device == "cuda" else device)
@@ -220,6 +222,7 @@ def run(args, device="cuda", bench_path=None, fault=None):
 
     results, times = [], []
     failed = 0
+    first_failure = None
     gc_s = [0.0, None]
 
     def gc_clock(phase, _info):
@@ -256,6 +259,8 @@ def run(args, device="cuda", bench_path=None, fault=None):
         except Exception as e:      # a failed call counts; the run goes on
             print("sample %d failed: %r" % (k, e), file=sys.stderr)
             failed += 1
+            if first_failure is None:
+                first_failure = ("%s: %s" % (type(e).__name__, e))[:200]
             res = None
         times.append(time.perf_counter() - t)
         if rf is not None:
@@ -358,7 +363,8 @@ def run(args, device="cuda", bench_path=None, fault=None):
                       kind=kind, count=cell["chips"],
                       memory_peak_bytes=peak, **dev_extra)
     out = dict(correct=correct, attempted=n, failed=failed,
-               metrics=metrics, device=device_out)
+               first_failure=first_failure, metrics=metrics,
+               device=device_out)
     if breakdown is not None:
         out["breakdown"] = breakdown
     out["compared"] = {k: dict(value=readings[k], limit=v)

@@ -29,8 +29,9 @@ def once(tree, cell="tiny.t", trace=0, fault=None, seconds=2.0, seed=3):
 def test_sound_run_is_correct_and_its_line_has_the_contract_keys(tree):
     out, readings, info, limits = once(tree)
     assert out["correct"] is True
-    assert list(out) == ["correct", "attempted", "failed", "metrics",
-                         "device", "compared"]
+    assert list(out) == ["correct", "attempted", "failed", "first_failure",
+                         "metrics", "device", "compared"]
+    assert out["first_failure"] is None
     assert set(out["metrics"]) == {"samples_per_s", "setup_s",
                                    "sample_p90_s"}
     assert out["attempted"] == info["samples"] > 0 and out["failed"] == 0
@@ -42,8 +43,8 @@ def test_sound_run_is_correct_and_its_line_has_the_contract_keys(tree):
 
 def test_traced_run_reports_layers_and_a_breakdown(tree):
     out, *_ = once(tree, trace=1)
-    assert list(out) == ["correct", "attempted", "failed", "metrics",
-                         "device", "breakdown", "compared"]
+    assert list(out) == ["correct", "attempted", "failed", "first_failure",
+                         "metrics", "device", "breakdown", "compared"]
     assert {"verify_ms_per_sample", "em_ms_per_sample"} <= \
         set(out["metrics"])
     assert "samples_per_s" not in out["metrics"]
@@ -89,6 +90,36 @@ def test_a_broken_timed_path_reads_not_correct(tree, fault):
     out, readings, _, limits = once(tree, fault=fault, seconds=1.5)
     assert out["correct"] is False
     assert not check.verdict(readings, limits)
+
+
+def test_the_first_failed_samples_error_is_kept(tree):
+    calls = []
+
+    def failing(typer):
+        def call(r1, r2):
+            calls.append(1)
+            if len(calls) in (4, 5):     # two warm-ups, then the window
+                raise ValueError("call %d: %s" % (len(calls), "x" * 300))
+            return typer(r1, r2)
+        return call
+    out, *_ = once(tree, fault=failing, seconds=2.0)
+    assert out["correct"] is False and out["failed"] == 2
+    assert out["first_failure"] == \
+        ("ValueError: call 4: " + "x" * 300)[:200]
+    json.dumps(out)
+
+
+def test_the_catalog_cache_key_covers_the_generator(tree, monkeypatch):
+    keyed = []
+    key = run.cache_key
+
+    def spy(cfg, *files):
+        keyed.append(files)
+        return key(cfg, *files)
+    monkeypatch.setattr(run, "cache_key", spy)
+    once(tree, seconds=0.5)
+    program = [f for f in keyed if any("systems" in p for p in f)]
+    assert program and os.path.join(tiny.BENCH, "gen.py") in program[0]
 
 
 def test_the_control_fails_every_compared_number(tree):

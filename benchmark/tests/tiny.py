@@ -25,6 +25,22 @@ def config(n_alleles=60):
                 reduced=[])
 
 
+def panel_config(divergence=0.15):
+    """Three small genes, so that the program's router is on: A as
+    config() lays it out, B a paralog of A at `divergence` with layout
+    keys of its own, C a gene of its own with a class II-like layout."""
+    cfg = config()
+    cfg["system"] = "family"
+    cfg["genes"] = [
+        dict(name="A", seed=4),
+        dict(name="B", seed=5, paralog_of="A", divergence=divergence,
+             length=1400, n_alleles=50),
+        dict(name="C", seed=6, length=1300,
+             exons=[[100, 200], [400, 600], [800, 900]], primary_exons=[1],
+             partial_exons=[1], n_alleles=40)]
+    return cfg
+
+
 MIX = dict(interval=20, read_len=100, frag_len=350, profile_samples=2,
            check_samples=2)
 
