@@ -145,7 +145,18 @@ def type_family(catalog, reads_1, reads_2=None, locus_list=None, opts=None,
     aborting the family — the reference's per-sample error-log behavior
     (hisatgenotype:670-680).  `device` defaults to the family aligner's
     device, else to hgtpu_torch.default_device().
+
+    The call is one TRACE call under the root stage call.type_family
+    (with `threads` > 1 each worker's genes are calls of their own).
     """
+    with TRACE.stage("call.type_family"):
+        return _type_family(catalog, reads_1, reads_2, locus_list, opts,
+                            family_aligner, sam_out, threads, runlog,
+                            device)
+
+
+def _type_family(catalog, reads_1, reads_2, locus_list, opts,
+                 family_aligner, sam_out, threads, runlog, device):
     from ..align.family import FamilyAligner
 
     opts = opts or TypingOptions()

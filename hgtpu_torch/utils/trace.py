@@ -13,7 +13,8 @@ Usage:
         ...
     TRACE.summary()   # {stage: {"s": total, "n": calls}}
     TRACE.report(sys.stderr)
-    TRACE.calls()     # per call: {stage: {"s", "self", "n"}}, spans
+    TRACE.calls()     # per call: {stage: {"s", "self", "n"}}, spans,
+                      # counters
 
 Besides the flat totals, every stage is a span (name, start, end,
 parent) on its thread's stack.  A stage opened with no stage open on
@@ -21,6 +22,9 @@ its thread starts a *call* under a fresh integer id (typing one sample
 through `pipeline.type_reads` is one call, under its root stage
 `call.type_reads`); the spans of the last MAX_CALLS finished calls are
 kept, at most MAX_SPANS each.  All stamps are `time.perf_counter()`.
+`TRACE.count` adds to the flat counters and, inside a stage, to the
+open call's own counters too, so a reader can count over a window's
+calls (the family router's `route.*` counters, `align/family.py`).
 While a torch.profiler session records, each stage also opens a
 `torch.profiler.record_function` range of its own name, so the
 profiler's timeline carries the stages, nested as the spans are.
@@ -45,9 +49,9 @@ MAX_SPANS = 1024      # spans kept per call; later ones count as dropped
 class _Call:
     """One call's spans: their names, and per span three doubles in
     `times`: start, end (0.0 while open) and the index of the enclosing
-    span (-1 at the root)."""
+    span (-1 at the root); and the counters counted inside it."""
 
-    __slots__ = ("id", "t0", "t1", "names", "times", "dropped")
+    __slots__ = ("id", "t0", "t1", "names", "times", "dropped", "counters")
 
     def __init__(self, cid, t0):
         self.id = cid
@@ -56,6 +60,7 @@ class _Call:
         self.names = []
         self.times = array("d")
         self.dropped = 0
+        self.counters = {}
 
     def spans(self):
         t = self.times
@@ -89,7 +94,7 @@ class _Call:
     def record(self):
         return {"id": self.id, "t0": self.t0, "t1": self.t1,
                 "stages": self.stages(), "spans": self.spans(),
-                "dropped": self.dropped}
+                "dropped": self.dropped, "counters": dict(self.counters)}
 
 
 # torch.autograd._profiler_enabled once torch has loaded; this module
@@ -191,9 +196,13 @@ class StageTimer:
             self._calls.clear()
 
     def count(self, name, value):
-        """Accumulate a named scalar counter (e.g. dispatched FLOPs)."""
+        """Accumulate a named scalar counter (e.g. dispatched FLOPs), in
+        the flat totals and in the call open on this thread, if any."""
         with self._lock:
             self._c[name] = self._c.get(name, 0.0) + value
+        call = self._local.__dict__.get("call")
+        if call is not None:
+            call.counters[name] = call.counters.get(name, 0.0) + value
 
     def counters(self):
         with self._lock:
@@ -212,7 +221,8 @@ class StageTimer:
         """The kept calls that started at or after t0 and ended at or
         before t1 (perf_counter seconds; None is unbounded), oldest
         first: {"id", "t0", "t1", "stages": {name: {"s", "self",
-        "n"}}, "spans": [(name, start, end, parent index)], "dropped"}.
+        "n"}}, "spans": [(name, start, end, parent index)], "dropped",
+        "counters": {name: total counted inside the call}}.
         """
         return [c.record() for c in list(self._calls)
                 if (t0 is None or c.t0 >= t0)

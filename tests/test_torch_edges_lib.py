@@ -744,11 +744,13 @@ def test_trace_report_renders_as_hgtpu():
 # the stages the port's TRACE records beyond hgtpu's (PERF.md section 3):
 # each typing call's root, the EM's input and its iterations, the
 # passes' dispatch and their CUDA graphs' captures, the host's waits on
-# device fetches, and verify.prep's sub-steps
+# device fetches, verify.prep's sub-steps, and a family typing call's
+# root with the router, the per-gene alignment and the NH==1 rule
 PORT_ONLY_STAGES = {"call.type_reads", "em.build", "em.solve",
                     "pass.dispatch", "pass.capture", "sync.fetch",
                     "verify.prep.proposals", "verify.prep.bound",
-                    "verify.prep.filter"}
+                    "verify.prep.filter", "call.type_family",
+                    "family.route", "family.align", "family.nh1"}
 
 
 def test_trace_collects_typing_stages_as_hgtpu():

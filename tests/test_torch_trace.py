@@ -146,6 +146,31 @@ def test_memory_is_bounded_in_calls_and_in_spans_per_call():
     assert t.summary()["leaf"]["n"] == trace_mod.MAX_SPANS + extra
 
 
+def test_counters_add_to_the_open_call_and_to_the_flat_totals():
+    t = StageTimer()
+    t.count("c", 1.0)                       # no call open: flat only
+
+    def worker():
+        with t.stage("w"):
+            t.count("c", 10.0)
+
+    with t.stage("root"):
+        t.count("c", 2.0)
+        with t.stage("inner"):
+            t.count("c", 3.0)
+            t.count("d", 1.0)
+            th = threading.Thread(target=worker)
+            th.start()
+            th.join()
+    with t.stage("next"):
+        pass
+    worker_call, first, second = t.calls()
+    assert first["counters"] == {"c": 5.0, "d": 1.0}
+    assert worker_call["counters"] == {"c": 10.0}
+    assert second["counters"] == {}
+    assert t.counters() == {"c": 16.0, "d": 1.0}
+
+
 @pytest.mark.parametrize("how", ["raises", "left_open"])
 def test_the_call_after_a_broken_one_starts_at_depth_zero(how):
     t = StageTimer()
