@@ -120,6 +120,13 @@ Phases:
              type_family on the card (router on) equals the port's CPU
              run gene by gene and field by field, truths on top; warm
              wall and reads/s; ReadExtractor equals its CPU run
+  bound      the verify prep's proposal bound kernel: every launch of
+             the family warm-up recorded (codes, entries, cap, output)
+             and held against the aligner's numpy _lb_core on the same
+             inputs, bitwise (the recorded output and a second launch);
+             timed at the recorded median and largest call and at
+             hla6.wgs30's per-call entries (7,399 and 57,112: the largest
+             call's entries repeated), beside _lb_core's host time
   panel      K1 at the router's shape (N = 2 x the mate batch, P1 the
              whole panel: 6 x (512 + ~3.5 k) + 512 rows - m + 1) at m =
              128 (the family run's operands) and m = 512 (600-bp reads,
@@ -226,9 +233,9 @@ Phases:
              reached the fold, the bit DP kernel > 0 on the host path and
              in the prod-scale rescue and the warp DP kernel 0 on both
              paths; on the family path K1 = the router's 2 launches + the
-             per-gene placements, K2 and the bit DP kernel > 0; the native
-             library loaded; neither jax nor hgtpu (the JAX package) ever
-             imported
+             per-gene placements, K2, the bit DP kernel and the
+             proposal bound > 0; the native library loaded; neither jax
+             nor hgtpu (the JAX package) ever imported
 
 Every failure raises: nothing is caught and carried on, and there is no
 CPU fallback.  Exits non-zero without a CUDA device or without the repo
@@ -237,11 +244,13 @@ JSON record, the card's name and power limit, and the device JSON.
 The JSON holds one record per kernel and timed shape (`shape`): ms,
 plain_ms and library_ms (null where no torch call computes the function)
 are device times of one call (CUDA-graph replay: the host's cost of a
-wrapped call, tens of microseconds, would swamp a small kernel),
+wrapped call, tens of microseconds, would swamp a small kernel; the
+proposal bound's plain version is numpy on the host, plain_host_ms),
 bound_ms / bound_by the least time the card could take for the same
 work, launches the main path's count (the family path's for the K1
-records at the router's shape, "path": "family"), launches_assembly the
-assembly phase's scale run's, launches_mesh the mesh phase's 2-shard
+records at the router's shape and the proposal bound's, "path":
+"family"), launches_assembly the assembly phase's scale run's,
+launches_mesh the mesh phase's 2-shard
 run's, launches_golden the five golden children's, launches_campaign the
 campaign phase's, launches_scaling the shard sweep's, launches_bench the
 bench's three cells' (warm-ups included), launches_edges the edge
@@ -1000,13 +1009,14 @@ def k1_spies(operands=None):
 
 
 def family_phase(cat, truths, reads_1, reads_2, dev, counts, reset,
-                 sam_prefix):
+                 sam_prefix, bounds):
     """type_family on `dev` (FamilyAligner routes through the panel
     router: 6 genes) against the port's CPU run, gene by gene and field by
     field, every truth pair on top; and ReadExtractor on the same reads
     against its CPU run.  A warm-up run first (tables, per-gene typers;
     it writes the per-gene SAM files under sam_prefix and records the
-    router's K1 operands), then the run whose launches are counted: the
+    router's K1 operands and, into `bounds`, every launch of the verify
+    prep's proposal bound), then the run whose launches are counted: the
     counts are set to 0 just before it and read just after.  Returns
     (launches, router operands {m: (pwm, reads)}, family aligner, the
     K1 calls of that run: {"router": n, "gene": n}, its results, its
@@ -1024,8 +1034,9 @@ def family_phase(cat, truths, reads_1, reads_2, dev, counts, reset,
     operands = {}
     with k1_spies(operands) as calls:
         t0 = time.perf_counter()
-        type_family(cat, reads_1, reads_2, family_aligner=fa,
-                    sam_out=sam_prefix)
+        with bound_spy(bounds):
+            type_family(cat, reads_1, reads_2, family_aligner=fa,
+                        sam_out=sam_prefix)
         if on_card:
             torch.cuda.synchronize()
         log("setup: family warm-up run on %s %.2f s"
@@ -1088,6 +1099,135 @@ def family_phase(cat, truths, reads_1, reads_2, dev, counts, reset,
         % (len(kept), len(reads_1), sum(n.startswith("bg") for n in kept),
            n_bg, ex_s))
     return launches, operands, fa, proof, res, wall
+
+
+@contextlib.contextmanager
+def bound_spy(calls):
+    """Records every launch of the verify prep's proposal bound into
+    `calls`: (aligner, codes, mask, entries, cap, bound), the codes,
+    entries and bound copied as the kernel saw and gave them."""
+    from hgtpu_torch.align import aligner as amod
+
+    real_bound, real_lb = amod.proposal_bound, amod.GeneAligner._lb_entries
+    who = [None]
+
+    def lb_spy(self, *a, **k):
+        who[0] = self
+        return real_lb(self, *a, **k)
+
+    def spy(codes, mask, entries, cap):
+        out = real_bound(codes, mask, entries, cap)
+        calls.append((who[0], codes.clone(), mask, entries.clone(), cap,
+                      out.clone()))
+        return out
+
+    amod.proposal_bound = spy
+    amod.GeneAligner._lb_entries = lb_spy
+    try:
+        yield calls
+    finally:
+        amod.proposal_bound = real_bound
+        amod.GeneAligner._lb_entries = real_lb
+
+
+# hla6.wgs30's per-call entries of the proposal bound, its median call and
+# its largest (the benchmark's samples, each call recorded; PERF.md)
+BOUND_E_CELL = (7399, 57112)
+
+
+def bound_phase(calls, timer):
+    """The verify prep's proposal bound: every call recorded in the
+    family warm-up (bound_spy) held against the aligner's numpy
+    _lb_core on the same inputs, bitwise, the kernel's own output and a
+    second launch; then timed (timer = cuda_ms) at the recorded median
+    and largest call and at hla6.wgs30's per-call entries (BOUND_E_CELL:
+    the largest recorded call's entries repeated to that many), beside
+    _lb_core's host time.  Bound: bytes (12 per entry in, 1 out, each code
+    row the entries read once, the table once).  Returns the JSON
+    records."""
+    import numpy as np
+    import torch
+    from hgtpu_torch.ops.proposal_bound import proposal_bound
+
+    if not calls:
+        raise AssertionError("bound: the family run never launched the "
+                             "proposal bound")
+
+    def lb_core(ga, codes, ent, cap):
+        # the aligner's plain bound on the kernel's inputs (past a row's
+        # end the code is 5, never free, as the kernel reads it)
+        if cap != ga.num_editdist + 1:
+            raise AssertionError("bound: cap %d, budget %d"
+                                 % (cap, ga.num_editdist))
+        e = ent.cpu().numpy().astype(np.int64)
+        rows, base, cw = e.T
+        clip, win = cw & 0xFFFF, cw >> 16
+        W = int(win.max())
+        c = codes.cpu().numpy()
+        c = np.concatenate([c, np.full((len(c), W), 5, np.int8)], 1)
+
+        def fetch(active, at, w):
+            return c[rows[active][:, None],
+                     clip[active][:, None] + at + np.arange(w)]
+
+        return ga._lb_core(fetch, len(rows), base - ga._LB_PAD, win, W)
+
+    n_kept = 0
+    for k, (ga, codes, mask, ent, cap, got) in enumerate(calls):
+        want = lb_core(ga, codes, ent, cap)
+        again = proposal_bound(codes, mask, ent, cap).cpu().numpy()
+        if not (np.array_equal(got.cpu().numpy(), want)
+                and np.array_equal(again, want)):
+            raise AssertionError(
+                "bound: kernel != _lb_core at call %d (E=%d, %d entries "
+                "differ)" % (k, ent.shape[0],
+                             int((got.cpu().numpy() != want).sum())))
+        n_kept += int((want < cap).sum())
+    Es = sorted(c[3].shape[0] for c in calls)
+    W_max = max(int((c[3][:, 2] >> 16).max()) for c in calls)
+    log("bound: %d calls of the family warm-up (E median %d, max %d, total "
+        "%d; W <= %d), each equal to _lb_core bitwise (the recorded output "
+        "and a second launch); %d entries within the budget"
+        % (len(calls), Es[len(Es) // 2], Es[-1], sum(Es), W_max, n_kept))
+
+    by_e = sorted(range(len(calls)), key=lambda k: calls[k][3].shape[0])
+    largest = calls[by_e[-1]]
+    cases = [(calls[by_e[len(by_e) // 2]], "family run, median call"),
+             (largest, "family run, largest call")]
+    for E in BOUND_E_CELL:
+        idx = torch.arange(E, device=largest[3].device) \
+            % largest[3].shape[0]
+        cases.append((largest[:3] + (largest[3][idx].contiguous(),)
+                      + largest[4:], "hla6.wgs30's E, the largest call's "
+                      "entries repeated"))
+    records = []
+    for (ga, codes, mask, ent, cap, _got), where in cases:
+        E = ent.shape[0]
+        ms = timer(lambda: proposal_bound(codes, mask, ent, cap))
+        t0 = time.perf_counter()
+        lb_core(ga, codes, ent, cap)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        n_rows = int(torch.unique(ent[:, 0]).numel())
+        nbytes = 13 * E + n_rows * codes.shape[1] + mask.numel()
+        b_ms, b_by = bound_ms(nbytes, 0, PEAK_F32_S)
+        log("bound: %s E=%d W<=%d: kernel %.4f ms; _lb_core on the host "
+            "%.2f ms; bound %.5f ms (%s: %d bytes), %.1f %% of it"
+            % (where, E, int((ent[:, 2] >> 16).max()), ms, host_ms, b_ms,
+               b_by, nbytes, 100 * b_ms / ms))
+        records.append(dict(
+            name="proposal_bound", path="family", route="cuda",
+            source="hgtpu_torch/csrc/proposal_bound.cu",
+            replaces="none: hgtpu bounds on the host "
+                     "(hgtpu/align/aligner.py:_lb_core)",
+            max_abs_err=0.0, ms=ms, plain_ms=None, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None,
+            library="none: no torch call computes the bound",
+            plain="GeneAligner._lb_core (numpy, host)",
+            plain_host_ms=host_ms,
+            shape="E=%d W<=%d (%s)" % (E, int((ent[:, 2] >> 16).max()),
+                                       where),
+            shapes_checked=len(calls)))
+    return records
 
 
 def panel_phase(router, cpu_router, operands, long_seqs, timer):
@@ -2497,6 +2637,7 @@ def main():
                                                and_reduce_wide, k2_plan)
     from hgtpu_torch.ops.placement_kernel import (placement_scores,
                                                   placement_scores_plain)
+    from hgtpu_torch.ops.proposal_bound import proposal_bound
     from hgtpu_torch.parallel import e2e, production
     from hgtpu_torch.parallel.e2e import ShardedTyper
     from hgtpu_torch.pipeline import type_reads
@@ -2852,7 +2993,8 @@ def main():
                 "and_reduce_slab": and_reduce_slab.launches,
                 "and_reduce_wide": and_reduce_wide.launches,
                 "banded_dp_bits": banded_costs_bits.launches,
-                "banded_dp_warp": banded_costs_warp.launches}
+                "banded_dp_warp": banded_costs_warp.launches,
+                "proposal_bound": proposal_bound.launches}
 
     def reset():
         placement_scores.launches = 0
@@ -2861,6 +3003,7 @@ def main():
         banded_costs.launches = 0
         banded_costs_bits.launches = 0
         banded_costs_warp.launches = 0
+        proposal_bound.launches = 0
 
     # ---- host-engine path: counts cover exactly these two runs ---- #
     reset()
@@ -2994,9 +3137,12 @@ def main():
                                  len(f1), 2000, time.perf_counter() - t0))
     work = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
+    bounds = []
     fam_launches, operands, fa, fam_proof, fam_res, fam_wall = family_phase(
         cat, fam_truths, f1, f2, dev, counts, reset,
-        os.path.join(work, "family"))
+        os.path.join(work, "family"), bounds)
+    kernels.extend(bound_phase(bounds, cuda_ms))
+    del bounds
     rng = np.random.default_rng(23)
     pos = rng.integers(0, len(fam["genome"]) - 600, len(f1))
     long_seqs = [fam["genome"][p:p + 600] for p in pos]
@@ -3087,7 +3233,7 @@ def main():
                              "router's 2 (one per mate) + %d per-gene "
                              "placements" % (fam_launches["placement_scores"],
                                              fam_proof["gene"]))
-    for name in ("and_reduce_slab", "banded_dp_bits"):
+    for name in ("and_reduce_slab", "banded_dp_bits", "proposal_bound"):
         if fam_launches[name] <= 0:
             raise AssertionError("%s never launched on the family path"
                                  % name)

@@ -20,6 +20,7 @@ from ..utils.trace import TRACE, to_host
 from .. import resolve_device
 from ..ops.placement import (backbone_pwm, encode_reads,
                              place_batch_packed, place_scan_batch)
+from ..ops.proposal_bound import pack_entries, pack_mask, proposal_bound
 from .types import ReadAln, _UID as _aln_uid
 from .verify import GeneVerifier
 
@@ -38,6 +39,47 @@ def _pad_codes_2d(code_list, n_rows, width, fill):
         - np.repeat(np.cumsum(lens) - lens, lens)
     out[rows, cols] = np.concatenate(clipped) if clipped else []
     return out
+
+
+def _first_min(group, *keys):
+    """Positions of each group's first entry at the least `keys`
+    (compared in order), ascending: the per-read first-minimal pick."""
+    order = np.lexsort((np.arange(len(group)),) + keys[::-1] + (group,))
+    g = group[order]
+    head = np.ones(len(g), bool)
+    head[1:] = g[1:] != g[:-1]
+    return np.sort(order[head])
+
+
+class _Entries:
+    """One orientation rank's proposal entries as arrays, in order read,
+    candidate, proposal (so each read's entries are contiguous): chunk
+    row, orientation, backbone start, front clip, length and the capped
+    novel-cost lower bound.  `codes(idx)` slices the subreads of the
+    requested entries only: the staged verifier touches each read's first
+    entry plus the rare lower-bound survivors."""
+
+    __slots__ = ("rows", "rc", "starts", "clip", "lens", "lbs", "_fwd",
+                 "_rcc")
+
+    def __init__(self, st, rows, rc, starts, clip, lens, lbs):
+        self.rows, self.rc, self.starts = rows, rc, starts
+        self.clip, self.lens, self.lbs = clip, lens, lbs
+        self._fwd, self._rcc = st["fwd_codes"], st["rc_codes"]
+
+    def __len__(self):
+        return len(self.rows)
+
+    def codes(self, idx):
+        fwd, rcc = self._fwd, self._rcc
+        return [(rcc[i] if o else fwd[i])[c:c + n] for i, o, c, n in zip(
+            self.rows[idx].tolist(), self.rc[idx].tolist(),
+            self.clip[idx].tolist(), self.lens[idx].tolist())]
+
+    def record(self, k, cost, ops):
+        """Entry k's result tuple (cost, ops, start, clip_front, sub_len)."""
+        return (int(cost), ops, int(self.starts[k]), int(self.clip[k]),
+                int(self.lens[k]))
 
 
 class GeneAligner:
@@ -63,7 +105,8 @@ class GeneAligner:
         self.device_batch = device_batch
         self.pad_len = pad_len
         self._ext_cache = {}  # padded device PWM per read length
-        self._prop_cache = {}  # start proposals per (anchor, read len)
+        self._start_tabs = {}  # read len -> _start_rows' table
+        self._lb_mask = None   # the dilated match table on the device
         self.leftmost = leftmost
         # match table for the proposal lower-bound filter: tbl[p+PAD, b]
         # is True when base b at backbone pos p is free (backbone match or
@@ -248,13 +291,13 @@ class GeneAligner:
         if (self._dp_tables is not None and not self.leftmost
                 and self.native is not None):
             per_chunk = [self._rank_entries(st, 0) for _g, _p, st in states]
-            sizes = [len(e[2]) if e else 0 for e in per_chunk]
+            sizes = [0 if e is None else len(e) for e in per_chunk]
             if sum(sizes):
+                got = [e for e in per_chunk if e is not None]
                 with TRACE.stage("verify.dp_codes"):
-                    codes = [r for e in per_chunk if e
-                             for r in e[0](range(len(e[2])))]
+                    codes = [r for e in got for r in e.codes(slice(None))]
                 cost, over = self._dp_costs(
-                    codes, [s for e in per_chunk if e for s in e[1]])
+                    codes, np.concatenate([e.starts for e in got]))
                 at = 0
                 for e, n, (_gi, _pad, st) in zip(per_chunk, sizes, states):
                     if not n:
@@ -346,7 +389,7 @@ class GeneAligner:
                 lb_pad=self._LB_PAD)
         else:
             device_out = place_batch_packed(pwm_ext, both, top_k=self.top_k)
-        return fwd_codes, rc_codes, device_out, max_len, fwd, rc, lens
+        return fwd_codes, rc_codes, device_out, max_len, fwd, rc, lens, both
 
     def _resolve_scan(self, device_out, n, m):
         """Unpack the fetched place_scan_batch buffer into
@@ -383,8 +426,8 @@ class GeneAligner:
         exact-diagonal fast path, and stage the remaining reads for the
         verify backends."""
         n = len(seqs)
-        fwd_codes, rc_codes, device_out, max_len, fwd_pad, rc_pad, lens = \
-            placed
+        (fwd_codes, rc_codes, device_out, max_len, fwd_pad, rc_pad, lens,
+         both) = placed
         if self._use_scan:
             sf, pf, sr, pr, use_rc, planes = self._resolve_scan(
                 device_out, n, max_len)
@@ -408,160 +451,182 @@ class GeneAligner:
                 planes))
 
         results = [None] * n   # (cost, ops, start, clip_front, sub_len, is_rc)
-        pending = []           # (read i, orientation order, read len)
+        pending = []           # rows left to the native verifier
         for i in range(n):
             if read_ids[i] == "__pad__":
                 continue
-            m = len(fwd_codes[i])
             is_rc = bool(use_rc[i])
             fast = fast_ops.get(i)
             if fast is not None:
                 results[i] = (fast, [], is_rc)
                 continue
+            if self.native is not None:
+                pending.append(i)
+                continue
+            m = len(fwd_codes[i])
             order = [(True, rc_codes[i], pr[i], sr[i]),
                      (False, fwd_codes[i], pf[i], sf[i])]
             if not use_rc[i]:
                 order.reverse()
-            if self.native is not None:
-                pending.append((i, order, m))
-            else:
-                for o_rc, codes, cand_p, cand_s in order:
-                    aln = self._verify_candidates(codes, cand_p, cand_s, m)
-                    if aln is not None:
-                        if len(aln) == 6:
-                            results[i] = (aln[:5], aln[5], o_rc)
-                        else:
-                            results[i] = (aln, [], o_rc)
-                        break
+            for o_rc, codes, cand_p, cand_s in order:
+                aln = self._verify_candidates(codes, cand_p, cand_s, m)
+                if aln is not None:
+                    if len(aln) == 6:
+                        results[i] = (aln[:5], aln[5], o_rc)
+                    else:
+                        results[i] = (aln, [], o_rc)
+                    break
+        # "both" is the placement's [2n, L] codes where they are (row i
+        # forward, n + i reverse); "cand" the [n, top_k] candidates
         return {"n": n, "read_ids": read_ids, "mate": mate,
                 "fwd_codes": fwd_codes, "rc_codes": rc_codes,
-                "fwd_pad": fwd_pad, "rc_pad": rc_pad,
-                "results": results, "pending": pending}
+                "lens": lens, "both": both, "cand": (sf, pf, sr, pr, use_rc),
+                "results": results,
+                "pending": np.asarray(pending, np.int64)}
 
     def _rank_entries(self, st, rank):
         with TRACE.stage("verify.prep"):
             return self._rank_entries_impl(st, rank)
 
     def _rank_entries_impl(self, st, rank):
-        """Flat proposal entries of the given orientation rank for the
-        still-unresolved reads, lower-bound filtered; None when nothing
-        survives.  Returns (get_codes, flat_starts, flat_meta, lbs) —
-        per-entry read codes are NOT materialized here: the staged
-        verifier touches only each read's first proposal plus the rare
-        lower-bound survivors, so slicing all E subreads up front paid
-        ~E list/array allocations for entries that are never verified.
-        get_codes(idxs) materializes exactly the requested entries."""
-        flat_starts, flat_meta = [], []
+        """The _Entries of the given orientation rank (0: the placement's
+        preferred orientation) for the still-unresolved reads, lower-bound
+        filtered; None when nothing survives."""
         with TRACE.stage("verify.prep.proposals"):
-            for i, order, m in st["pending"]:
-                o_rc, codes, cand_p, cand_s = order[rank]
-                for s, cf, ln in self._proposal_meta(cand_p, cand_s, m):
-                    flat_starts.append(s)
-                    flat_meta.append((i, o_rc, cf, ln))
-        if not flat_meta:
+            at, rc, starts, clip, lens = self._expand(st, rank)
+        if not len(at):
             return None
+        rows = st["pending"][at]
         with TRACE.stage("verify.prep.bound"):
-            lbs = self._lb_values_meta(st, flat_meta, flat_starts)
+            lbs = self._lb_entries(st, rows + np.where(rc, st["n"], 0),
+                                   starts, clip, lens)
         with TRACE.stage("verify.prep.filter"):
-            keep = lbs <= self.num_editdist
-            if not keep.all():
-                kept = np.flatnonzero(keep)
-                flat_starts = [flat_starts[k] for k in kept]
-                flat_meta = [flat_meta[k] for k in kept]
-                lbs = lbs[kept]
-        if not flat_meta:
+            keep = np.flatnonzero(lbs <= self.num_editdist)
+        if not len(keep):
             return None
-        fwd_codes, rc_codes = st["fwd_codes"], st["rc_codes"]
+        return _Entries(st, rows[keep], rc[keep], starts[keep], clip[keep],
+                        lens[keep], lbs[keep])
 
-        def get_codes(idxs):
-            out = []
-            for k in idxs:
-                i, o_rc, cf, ln = flat_meta[k]
-                c = rc_codes[i] if o_rc else fwd_codes[i]
-                out.append(c[cf:cf + ln])
-            return out
+    def _expand(self, st, rank):
+        """Every pending read's ordered proposal entries for one rank, as
+        arrays (index into st["pending"], orientation, start, clip_front,
+        sub_len) in order read, candidate, proposal (_expand_rows)."""
+        pend = st["pending"]
+        sf, pf, sr, pr, use_rc = st["cand"]
+        rc = use_rc[pend] != bool(rank)
+        at, s, clip, ln = self._expand_rows(
+            np.where(rc[:, None], pr[pend], pf[pend]),
+            np.where(rc[:, None], sr[pend], sf[pend]), st["lens"][pend])
+        return at, rc[at], s, clip, ln
 
-        return get_codes, flat_starts, flat_meta, lbs
+    def _expand_rows(self, cand_p, cand_s, m_all, max_clip_frac=0.35):
+        """The ordered proposal entries of reads with candidate anchors
+        cand_p [R, K], their scores cand_s [R, K] and lengths m_all [R],
+        as arrays (read, start, clip_front, sub_len) in order read,
+        candidate, proposal.
 
-    def _proposal_meta(self, cand_pos, cand_scores, m,
-                       max_clip_frac=0.35):
-        """_proposal_entries without materializing subreads: ordered
-        (start, clip_front, sub_len) tuples (same dedup + clip rules).
-
-        Memoized on (valid candidate prefix, m): the output depends on
-        cand_scores only through the first below-threshold break, so
-        reads anchored at the same diagonals (common among punts from
-        the same locus) share one computed list."""
-        min_score = m * self.min_seed_frac
-        kv = 0
-        while kv < len(cand_pos) and cand_scores[kv] >= min_score:
-            kv += 1
-        ck = (m, bytes(np.ascontiguousarray(cand_pos[:kv]).data))
-        cache = self.__dict__.setdefault("_pmeta_cache", {})
-        hit = cache.get(ck)
-        if hit is not None:
-            return hit
-        out = []
+        Per read: the candidates up to the first one scoring below
+        m * min_seed_frac, each candidate's start proposals
+        (_start_rows), those clipped at a backbone end soft-clipped to the
+        overlapping part (as the reference trims hisat2 soft clips,
+        typing_core.py:1097-1107) unless a clip passes max_clip_frac of
+        the read, and a start already proposed by an earlier candidate
+        dropped (a start fixes its clip and length)."""
+        cand_p = np.asarray(cand_p, np.int64)
         P = len(self.gene.backbone)
-        max_clip = int(m * max_clip_frac)
-        tried = set()
-        for k in range(len(cand_pos)):
-            if cand_scores[k] < min_score:
-                break
-            for start in self._start_proposals(int(cand_pos[k]), m):
-                clip_front = 0
-                ln = m
-                s = start
-                if s < 0:
-                    clip_front = -s
-                    if clip_front > max_clip:
-                        continue
-                    ln -= clip_front
-                    s = 0
-                overhang = s + ln - P
-                if overhang > 0:
-                    if overhang > max_clip:
-                        continue
-                    ln -= overhang
-                key = (s, clip_front, ln)
-                if ln < m - max_clip or key in tried:
-                    continue
-                tried.add(key)
-                out.append(key)
-        if len(cache) > 100000:
-            cache.clear()
-        cache[ck] = out
-        return out
+        parts = []
+        for m in np.unique(m_all).tolist():
+            sel = np.flatnonzero(m_all == m)
+            valid = np.logical_and.accumulate(
+                cand_s[sel] >= m * self.min_seed_frac, axis=1)
+            r, k = np.nonzero(valid)                 # read, then candidate
+            if not len(r):
+                continue
+            tab, count = self._start_rows(m, cand_p[sel[r], k])
+            t = tab[np.arange(tab.shape[1])[None, :] < count[:, None]] \
+                .astype(np.int64)
+            at = np.repeat(sel[r], count)
+            max_clip = int(m * max_clip_frac)
+            clip = np.maximum(-t, 0)
+            s = np.maximum(t, 0)
+            over = s + (m - clip) - P
+            ln = m - clip - np.maximum(over, 0)
+            ok = np.flatnonzero((clip <= max_clip) & (over <= max_clip)
+                                & (ln >= m - max_clip))
+            _, first = np.unique((at[ok] << 32) + (t[ok] + (1 << 31)),
+                                 return_index=True)
+            ok = ok[np.sort(first)]
+            parts.append((at[ok], s[ok], clip[ok], ln[ok]))
+        if not parts:
+            return tuple(np.zeros(0, np.int64) for _ in range(4))
+        at, s, clip, ln = (np.concatenate(x) for x in zip(*parts))
+        if len(parts) > 1:
+            order = np.argsort(at, kind="stable")
+            at, s, clip, ln = at[order], s[order], clip[order], ln[order]
+        return at, s, clip, ln
 
-    def _lb_values_meta(self, st, flat_meta, flat_starts):
-        """_lb_keep without materializing per-entry read copies: every
-        proposal entry is a (clip, length) window of a chunk row, so one
-        fancy gather from the chunk's padded code matrices builds the
-        [E, W] matrix the bound scans (same result as _lb_keep on the
-        materialized subreads)."""
-        comb = st.get("comb_pad")
-        if comb is None or comb.shape[0] != 2 * st["n"]:
-            comb = np.concatenate([st["fwd_pad"], st["rc_pad"]], axis=0)
-            st["comb_pad"] = comb
-        n = st["n"]
-        E = len(flat_meta)
-        rows = np.fromiter((m[0] + (n if m[1] else 0) for m in flat_meta),
-                           np.int64, E)
-        cfs = np.fromiter((m[2] for m in flat_meta), np.int64, E)
-        lens = np.fromiter((m[3] for m in flat_meta), np.int64, E)
-        starts = np.asarray(flat_starts, dtype=np.int64)
+    def _start_rows(self, m, anchors):
+        """(starts [N, cap], counts [N]): _start_closure(p, m) of each
+        anchor p, from a table per read length whose row for an anchor is
+        filled the first time the anchor is seen (count 0: not yet).  The
+        table covers the anchors [-m, P] at first, and grows to any
+        anchor outside."""
+        lo_need, hi_need = int(anchors.min()), int(anchors.max())
+        tab = self._start_tabs.get(m)
+        if tab is None or lo_need < tab[0] \
+                or hi_need >= tab[0] + len(tab[2]):
+            lo, hi = min(lo_need, -m), max(hi_need, len(self.gene.backbone))
+            if tab is not None:
+                lo, hi = min(lo, tab[0]), max(hi, tab[0] + len(tab[2]) - 1)
+            rows = hi + 1 - lo
+            new = (lo, np.zeros((rows, self._START_CAP), np.int32),
+                   np.zeros(rows, np.int32))
+            if tab is not None:
+                at = tab[0] - lo
+                new[1][at:at + len(tab[2])] = tab[1]
+                new[2][at:at + len(tab[2])] = tab[2]
+            tab = self._start_tabs[m] = new
+        lo, starts, counts = tab
+        idx = anchors - lo
+        for q in np.unique(idx[counts[idx] == 0]).tolist():
+            row = self._start_closure(q + lo, m)
+            starts[q, :len(row)] = row
+            counts[q] = len(row)
+        return starts[idx], counts[idx]
+
+    def _lb_entries(self, st, rows2, starts, clip, lens):
+        """Each entry's novel-cost lower bound, capped (_lb_core): entry e
+        reads row rows2[e] of the chunk's [2n, L] codes from column
+        clip[e].  On a CUDA aligner the hand kernel bounds them where the
+        codes already are (ops.proposal_bound); on the CPU, _lb_core."""
+        E = len(starts)
+        TRACE.count("verify.lb.entries", E)
         w_eff, W = self._lb_window(starts, lens)
+        both = st["both"]
+        if self.device.type == "cuda":
+            if self._lb_mask is None:
+                self._lb_mask = torch.from_numpy(
+                    pack_mask(self._match_ok6_dil)).to(self.device)
+            ent = torch.from_numpy(pack_entries(
+                rows2, starts + self._LB_PAD, clip,
+                np.minimum(w_eff, W))).to(self.device)
+            lb = to_host(proposal_bound(both, self._lb_mask, ent,
+                                        self.num_editdist + 1))
+            TRACE.count("verify.lb.card", E)
+            return lb
+        # every _LB_BLOCK-column run of the chunk's codes, row after row,
+        # as a view: an entry's block is one run (columns past its length
+        # lie past its window and never count, whatever they hold)
+        CH = self._LB_BLOCK
+        runs = np.lib.stride_tricks.sliding_window_view(np.concatenate(
+            [both.numpy().reshape(-1), np.zeros(CH, np.int8)]), CH)
+        at0 = rows2 * both.shape[1] + clip
 
         def fetch(active, at, w):
-            # gather one 64-column block for the still-active entries
-            # only: most wrong proposals die in the first block, so the
-            # full [E, W] gather is never materialized
-            jj = np.arange(at, at + w, dtype=np.int64)
-            col = np.minimum(cfs[active][:, None] + jj[None, :],
-                             comb.shape[1] - 1)
-            rp = comb[rows[active][:, None], col]
-            rp[jj[None, :] >= lens[active][:, None]] = 5   # 5 never free
-            return rp
+            # gather one block for the still-active entries only: most
+            # wrong proposals die in the first block, so the full [E, W]
+            # gather is never materialized
+            return runs[at0[active] + at, :w]
 
         return self._lb_core(fetch, E, starts, w_eff, W)
 
@@ -583,6 +648,8 @@ class GeneAligner:
         W = int(min(lens.max(), max(1, w_eff.max()), self._LB_TAIL))
         return w_eff, W
 
+    _LB_BLOCK = 64    # columns a step of the host bound scan
+
     def _lb_core(self, fetch, E, starts, w_eff, W):
         """Per-entry novel-cost lower bound, CAPPED at num_editdist + 1
         (every caller only compares against costs <= the budget, so the
@@ -595,7 +662,7 @@ class GeneAligner:
         lb = np.zeros(E, np.int64)
         base0 = starts.astype(np.int32) + self._LB_PAD
         active = np.arange(E)
-        CH = 64
+        CH = self._LB_BLOCK
         for at in range(0, W, CH):
             w = min(CH, W - at)
             j = np.arange(at, at + w, dtype=np.int32)
@@ -614,19 +681,23 @@ class GeneAligner:
         orientation first; unresolved reads retry the other orientation.
         start_rank=1 when rank 0 was already handled by the batched
         device DP."""
-        if self.native is None or not st["pending"]:
+        if self.native is None:
             return
-        results = st["results"]
         for rank in range(start_rank, 2):
-            if not st["pending"]:
+            if not len(st["pending"]):
                 break
             entries = self._rank_entries(st, rank)
             if entries is None:
                 continue
-            self._resolve_entries_staged(entries[0], entries[1],
-                                         entries[2], entries[3], results)
-            st["pending"] = [po for po in st["pending"]
-                             if results[po[0]] is None]
+            self._resolve_entries_staged(entries, st["results"])
+            self._drop_resolved(st)
+
+    @staticmethod
+    def _drop_resolved(st):
+        results = st["results"]
+        pend = st["pending"]
+        st["pending"] = pend[np.fromiter(
+            (results[i] is None for i in pend.tolist()), bool, len(pend))]
 
     def _chunk_output(self, st):
         with TRACE.stage("place.output"):
@@ -688,75 +759,54 @@ class GeneAligner:
             out.append(aln)
         return out
 
-    def _resolve_entries(self, flat_reads, flat_starts, flat_meta, results,
-                         clear=None):
-        """Run the native verifier over proposal entries and install each
-        read's best (cost, then proposal-order; leftmost start in STR
-        mode) result into `results`.  `clear` lists read rows whose
+    def _resolve_entries(self, ent, idx, results, clear=None):
+        """Run the native verifier over the entries `idx` of `ent` and
+        install each read's best (cost, then proposal order; leftmost
+        start in STR mode, with every other equal-cost spelling as its
+        alternatives) into `results`.  `clear` lists read rows whose
         previous result must be discarded first (device-verify
         fallback)."""
-        if clear:
+        if clear is not None:
             for i in clear:
                 results[i] = None
-        if not flat_reads:
+        if not len(idx):
             return
+        reads = ent.codes(idx)
+        starts = ent.starts[idx]
         with TRACE.stage("verify.native"):
-            cost, nops, ops = self.native.verify_raw(flat_reads, flat_starts)
-        E = len(flat_meta)
-        best = {}
-        if not self.leftmost and E > 64:
-            # vectorized per-read first-minimal-cost pick (the python
-            # dict walk below costs ~7us/entry over 10k+ entries)
-            cost_np = np.asarray(cost, dtype=np.int64)
-            reads_np = np.fromiter((m[0] for m in flat_meta), np.int64, E)
-            valid = cost_np >= 0
-            if valid.any():
-                key = cost_np * E + np.arange(E, dtype=np.int64)
-                hi = np.int64(1) << 62
-                nmax = int(reads_np.max()) + 1
-                slot = np.full(nmax, hi)
-                np.minimum.at(slot, reads_np[valid], key[valid])
-                for i in np.flatnonzero(slot < hi).tolist():
-                    idx = int(slot[i] % E)
-                    _i, o_rc, cf, slen = flat_meta[idx]
-                    best[i] = (int(slot[i] // E), idx, o_rc, cf, slen)
-        else:
-            for idx, (i, o_rc, cf, slen) in enumerate(flat_meta):
-                c = int(cost[idx])
-                if c < 0:
-                    continue
-                better = i not in best or c < best[i][0] or (
-                    self.leftmost and c == best[i][0]
-                    and int(flat_starts[idx]) < int(flat_starts[best[i][1]]))
-                if better:
-                    best[i] = (c, idx, o_rc, cf, slen)
-        equal_alts = {}
+            cost, nops, ops = self.native.verify_raw(reads, starts)
+        cost = np.asarray(cost, np.int64)
+        rows = ent.rows[idx]
+        valid = np.flatnonzero(cost >= 0)
+        if not len(valid):
+            return
+        keys = (cost[valid], starts[valid]) if self.leftmost \
+            else (cost[valid],)
+        win = valid[_first_min(rows[valid], *keys)]
+        alts = {}
         if self.leftmost:
-            for idx, (i, o_rc, cf, slen) in enumerate(flat_meta):
-                c = int(cost[idx])
-                if i in best and c == best[i][0] and idx != best[i][1]:
-                    equal_alts.setdefault(i, []).append(
-                        (c, idx, o_rc, cf, slen))
+            best = np.full(int(rows.max()) + 1, -1, np.int64)
+            best[rows[win]] = cost[win]
+            same = (cost >= 0) & (cost == best[rows])
+            same[win] = False
+            for k in np.flatnonzero(same).tolist():
+                alts.setdefault(int(rows[k]), []).append(k)
         # batch-materialize every needed edit script in one pass
-        need = []                     # flat entry indices, winners first
-        for i, (c, idx, o_rc, cf, slen) in best.items():
-            need.append(idx)
-            need.extend(e[1] for e in equal_alts.get(i, ()))
-        ops_by_idx = dict(zip(need, self.native.ops_entries_batch(
-            [flat_reads[k] for k in need],
-            [nops[k] for k in need],
+        need = []                     # positions in idx, winners first
+        for w in win.tolist():
+            need.append(w)
+            need.extend(alts.get(int(rows[w]), ()))
+        ops_by = dict(zip(need, self.native.ops_entries_batch(
+            [reads[k] for k in need], [nops[k] for k in need],
             [ops[k] for k in need])))
-        for i, (c, idx, o_rc, cf, slen) in best.items():
-            def tup(c_, idx_, cf_, slen_):
-                return (c_, ops_by_idx[idx_],
-                        int(flat_starts[idx_]), cf_, slen_)
-            others = [tup(c_, idx_, cf_, slen_)
-                      for c_, idx_, _rc, cf_, slen_ in
-                      equal_alts.get(i, ())]
-            results[i] = (tup(c, idx, cf, slen), others, o_rc)
+        for w in win.tolist():
+            i = int(rows[w])
+            results[i] = (ent.record(idx[w], cost[w], ops_by[w]),
+                          [ent.record(idx[k], cost[k], ops_by[k])
+                           for k in alts.get(i, ())],
+                          bool(ent.rc[idx[w]]))
 
-    def _resolve_entries_staged(self, get_codes, flat_starts, flat_meta,
-                                lbs, results):
+    def _resolve_entries_staged(self, ent, results):
         """Exact two-stage native verify: each read's FIRST proposal
         entry is scored first; later proposals are scored only when
         their novel-cost lower bound could STRICTLY beat the found cost.
@@ -765,61 +815,43 @@ class GeneAligner:
         cost can never change the result — most reads pay one DFS
         instead of one per proposal.  Leftmost/STR mode needs every
         equal-cost entry (alt spellings + leftmost tie-break) and stays
-        on the single-batch path.  `get_codes(idxs)` materializes entry
-        subreads on demand (see _rank_entries_impl) — only the entries
-        actually verified are ever sliced."""
-        if self.leftmost:
-            return self._resolve_entries(get_codes(range(len(flat_meta))),
-                                         flat_starts, flat_meta, results)
-        first = {}
-        for idx, m in enumerate(flat_meta):
-            if m[0] not in first:
-                first[m[0]] = idx
-        if len(first) == len(flat_meta):
-            return self._resolve_entries(get_codes(range(len(flat_meta))),
-                                         flat_starts, flat_meta, results)
-        f_idx = sorted(first.values())
-        reads1 = get_codes(f_idx)
+        on the single-batch path.  Only the entries actually verified
+        are ever sliced (_Entries.codes)."""
+        E = len(ent)
+        head = np.ones(E, bool)           # each read's first entry
+        head[1:] = ent.rows[1:] != ent.rows[:-1]
+        if self.leftmost or head.all():
+            return self._resolve_entries(ent, np.arange(E), results)
+        f_idx = np.flatnonzero(head)
+        reads1 = ent.codes(f_idx)
         with TRACE.stage("verify.native"):
-            cost1, nops1, ops1 = self.native.verify_raw(
-                reads1, [flat_starts[k] for k in f_idx])
-        limit = {}
-        best = {}          # i -> (cost, orig idx, batch, local row)
-        for k, idx in enumerate(f_idx):
-            i = flat_meta[idx][0]
-            c = int(cost1[k])
-            limit[i] = c if c >= 0 else self.num_editdist + 1
-            if c >= 0:
-                best[i] = (c, idx, 1, k)
-        rest = [idx for idx, m in enumerate(flat_meta)
-                if idx != first[m[0]] and int(lbs[idx]) < limit[m[0]]]
-        cost2 = nops2 = ops2 = None
+            cost1, nops1, ops1 = self.native.verify_raw(reads1,
+                                                        ent.starts[f_idx])
+        cost1 = np.asarray(cost1, np.int64)
+        limit = np.where(cost1 >= 0, cost1, self.num_editdist + 1)
+        rest = np.flatnonzero(~head & (ent.lbs < limit[np.cumsum(head) - 1]))
         reads2 = []
-        if rest:
-            reads2 = get_codes(rest)
+        cost2 = np.zeros(0, np.int64)
+        if len(rest):
+            reads2 = ent.codes(rest)
             with TRACE.stage("verify.native"):
                 cost2, nops2, ops2 = self.native.verify_raw(
-                    reads2, [flat_starts[k] for k in rest])
-            for k, idx in enumerate(rest):
-                c = int(cost2[k])
-                if c < 0:
-                    continue
-                i = flat_meta[idx][0]
-                cur = best.get(i)
-                if cur is None or (c, idx) < (cur[0], cur[1]):
-                    best[i] = (c, idx, 2, k)
-        items = list(best.items())
-        all_ops = self.native.ops_entries_batch(
-            [(reads1[k] if batch == 1 else reads2[k])
-             for _i, (_c, _idx, batch, k) in items],
-            [(nops1[k] if batch == 1 else nops2[k])
-             for _i, (_c, _idx, batch, k) in items],
-            [(ops1[k] if batch == 1 else ops2[k])
-             for _i, (_c, _idx, batch, k) in items])
-        for (i, (c, idx, batch, k)), entry_ops in zip(items, all_ops):
-            _i, o_rc, cf, slen = flat_meta[idx]
-            results[i] = ((c, entry_ops, int(flat_starts[idx]), cf, slen),
-                          [], o_rc)
+                    reads2, ent.starts[rest])
+            cost2 = np.asarray(cost2, np.int64)
+        # the first-minimal (cost, entry) of each read over both batches
+        idx = np.concatenate([f_idx, rest])
+        cost = np.concatenate([cost1, cost2])
+        order = np.argsort(idx, kind="stable")
+        order = order[cost[order] >= 0]
+        win = order[_first_min(ent.rows[idx[order]], cost[order])]
+        src = [(reads1[w], nops1[w], ops1[w]) if w < len(f_idx) else
+               (reads2[w - len(f_idx)], nops2[w - len(f_idx)],
+                ops2[w - len(f_idx)]) for w in win.tolist()]
+        all_ops = self.native.ops_entries_batch(*zip(*src)) if src else []
+        for w, entry_ops in zip(win.tolist(), all_ops):
+            k = idx[w]
+            results[int(ent.rows[k])] = (ent.record(k, cost[w], entry_ops),
+                                         [], bool(ent.rc[k]))
 
     def _dp_costs(self, flat_reads, flat_starts):
         """One banded-DP launch over proposal entries, W padded to a
@@ -842,49 +874,30 @@ class GeneAligner:
             over = to_host(over)
         return cost, over
 
-    def _apply_dp(self, st, entries, cost, over):
+    def _apply_dp(self, st, ent, cost, over):
         """Install each read's first-minimal DP winner via host
         edit-script extraction; reads whose winner overflowed the band
         or whose DFS cost diverges (haplotype-window constraint) redo
         the full proposal set, so results stay bit-identical to the
         host-only path."""
-        get_codes, flat_starts, flat_meta = entries[:3]
         results = st["results"]
-        over_reads = set()
-        winner = {}
-        for idx, (i, _o_rc, _cf, _slen) in enumerate(flat_meta):
-            if over[idx]:
-                over_reads.add(i)
-                continue
-            c = int(cost[idx])
-            if c > self.num_editdist:
-                continue
-            if i not in winner or c < winner[i][0]:
-                winner[i] = (c, idx)
-        sel_k, sel_s, sel_m = [], [], []
-        dp_expect = {}
-        for i, (c, idx) in winner.items():
-            if i in over_reads:
-                continue
-            sel_k.append(idx)
-            sel_s.append(flat_starts[idx])
-            sel_m.append(flat_meta[idx])
-            dp_expect[i] = c
-        if sel_k:
-            self._resolve_entries(get_codes(sel_k), sel_s, sel_m, results)
-        redo = set(over_reads)
-        for i, c_dp in dp_expect.items():
+        cost = np.asarray(cost, np.int64)
+        over = np.asarray(over, bool)
+        over_rows = np.unique(ent.rows[over])
+        ok = np.flatnonzero(~over & (cost <= self.num_editdist))
+        win = ok[_first_min(ent.rows[ok], cost[ok])]
+        win = win[~np.isin(ent.rows[win], over_rows)]
+        if len(win):
+            self._resolve_entries(ent, win, results)
+        redo = set(over_rows.tolist())
+        for i, c_dp in zip(ent.rows[win].tolist(), cost[win].tolist()):
             r = results[i]
             if r is None or r[0][0] != c_dp:
                 redo.add(i)
         if redo:
-            rk = [k for k, m_ in enumerate(flat_meta) if m_[0] in redo]
-            self._resolve_entries(get_codes(rk),
-                                  [flat_starts[k] for k in rk],
-                                  [flat_meta[k] for k in rk], results,
-                                  clear=redo)
-        st["pending"] = [po for po in st["pending"]
-                         if results[po[0]] is None]
+            rk = np.flatnonzero(np.isin(ent.rows, list(redo)))
+            self._resolve_entries(ent, rk, results, clear=redo)
+        self._drop_resolved(st)
 
     def _lb_keep(self, flat_reads, flat_starts):
         """Boolean keep-mask over proposal entries: False entries provably
@@ -1247,43 +1260,14 @@ class GeneAligner:
             out[r] = (0, ops, int(s_w[k_]), 0, int(m_w[k_]))
         return out
 
-    def _proposal_entries(self, codes, cand_pos, cand_scores, m,
-                          max_clip_frac=0.35):
-        """Ordered verification entries [(sub_codes, start, clip_front)].
-
-        Candidates that overhang a backbone end are soft-clipped to the
-        overlapping part, as the reference trims hisat2 soft clips
-        (typing_core.py:1097-1107).
-        """
-        entries = []
-        min_score = m * self.min_seed_frac
-        P = len(self.gene.backbone)
-        max_clip = int(m * max_clip_frac)
-        tried = set()
-        for k in range(len(cand_pos)):
-            if cand_scores[k] < min_score:
-                break
-            for start in self._start_proposals(int(cand_pos[k]), m):
-                clip_front = 0
-                sub = codes
-                s = start
-                if s < 0:
-                    clip_front = -s
-                    if clip_front > max_clip:
-                        continue
-                    sub = sub[clip_front:]
-                    s = 0
-                overhang = s + len(sub) - P
-                if overhang > 0:
-                    if overhang > max_clip:
-                        continue
-                    sub = sub[:-overhang]
-                if len(sub) < m - max_clip \
-                        or (s, clip_front, len(sub)) in tried:
-                    continue
-                tried.add((s, clip_front, len(sub)))
-                entries.append((sub, s, clip_front))
-        return entries
+    def _proposal_entries(self, codes, cand_pos, cand_scores, m):
+        """Ordered verification entries [(sub_codes, start, clip_front)]
+        of one read (_expand_rows)."""
+        _, starts, clip, ln = self._expand_rows(
+            np.asarray(cand_pos)[None], np.asarray(cand_scores)[None],
+            np.array([m]))
+        return [(codes[c:c + n], s, c) for s, c, n in
+                zip(starts.tolist(), clip.tolist(), ln.tolist())]
 
     def _verify_candidates(self, codes, cand_pos, cand_scores, m):
         """Returns (cost, ops, start, clip_front, clip_len) or None.
@@ -1320,7 +1304,9 @@ class GeneAligner:
             return (*best, others)
         return best
 
-    def _start_proposals(self, p, m, max_depth=3, cap=48):
+    _START_CAP = 48    # start proposals per anchor
+
+    def _start_closure(self, p, m, max_depth=3):
         """Candidate read-start positions for an anchor diagonal p.
 
         The diagonal placement votes for the read's longest match segment; every
@@ -1329,9 +1315,6 @@ class GeneAligner:
         over up to `max_depth` stacked indel shifts.  Ref equivalent:
         HISAT2's internal seed-chain resolution across graph edges.
         """
-        cached = self._prop_cache.get((p, m))
-        if cached is not None:
-            return cached
         v = self.verifier
         seen = {p}
         frontier = [p]
@@ -1358,10 +1341,6 @@ class GeneAligner:
                     i += 1
             order.extend(nxt)
             frontier = nxt
-            if not frontier or len(order) >= cap:
+            if not frontier or len(order) >= self._START_CAP:
                 break
-        out = order[:cap]
-        if len(self._prop_cache) > 100000:
-            self._prop_cache.clear()
-        self._prop_cache[(p, m)] = out
-        return out
+        return order[:self._START_CAP]

@@ -37,13 +37,16 @@ def count_launches(tape):
 
 def launch_counts():
     """Each hand kernel's launches since its counter was last set to 0:
-    K1 (placement_scores), K2's two variants, the two banded DP kernels."""
+    K1 (placement_scores), K2's two variants, the two banded DP kernels,
+    the verify prep's proposal bound."""
     from .banded_dp import banded_costs_bits, banded_costs_warp
     from .compat_kernel import and_reduce_slab, and_reduce_wide
     from .placement_kernel import placement_scores
+    from .proposal_bound import proposal_bound
 
     return {"placement_scores": placement_scores.launches,
             "and_reduce_slab": and_reduce_slab.launches,
             "and_reduce_wide": and_reduce_wide.launches,
             "banded_dp_bits": banded_costs_bits.launches,
-            "banded_dp_warp": banded_costs_warp.launches}
+            "banded_dp_warp": banded_costs_warp.launches,
+            "proposal_bound": proposal_bound.launches}

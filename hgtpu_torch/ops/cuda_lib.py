@@ -47,6 +47,9 @@ _SIGNATURES = {
     # ins_mask, cost, over, stream
     "hgtpu_torch_banded_dp_warp": (_VP, _I, _VP, _I, _I, _VP, _VP, _I, _I,
                                    _I, _I, _VP, _VP, _VP),
+    # codes, n_rows, L, mask, T, entries, E, cap, out, stream
+    "hgtpu_torch_proposal_bound": (_VP, _I, _I, _VP, _I, _VP, _I, _I, _VP,
+                                   _VP),
 }
 
 

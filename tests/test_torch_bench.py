@@ -4,7 +4,8 @@ the port's TRACE counters add up as hgtpu's do.
   counters   hgtpu and the port type the same reads of a small gene, on
              the host engine (device fold and device verify on, both
              sides) and on the production path: TRACE.counters() have
-             the same keys and values (relative 1e-9).  The DP's FLOPs
+             the same keys, beyond them only the port's own
+             (PORT_ONLY_COUNTERS), and the same values (relative 1e-9).  The DP's FLOPs
              are hgtpu's formula at the entries launched: hgtpu pads E
              to a power of two for XLA's compile cache, the port launches
              E as it is, so hgtpu's count is taken at its real entries.
@@ -107,6 +108,10 @@ def assert_contract(got, want):
         assert abs(p - q) < 1e-9
 
 
+# the verify prep's bounded entries, and those bounded on the card
+PORT_ONLY_COUNTERS = {"verify.lb.entries", "verify.lb.card"}
+
+
 @pytest.mark.parametrize("path", ["host", "production"])
 def test_trace_counters_equal_hgtpus(small, path, monkeypatch):
     from hgtpu.align import GeneAligner as JaxAligner
@@ -152,7 +157,8 @@ def test_trace_counters_equal_hgtpus(small, path, monkeypatch):
     if "flops.device_dp" in want_c:
         assert dp_real
         want_c["flops.device_dp"] = sum(dp_real)
-    assert sorted(got_c) == sorted(want_c)
+    # beyond hgtpu's counters, only the port's own
+    assert sorted(set(got_c) - PORT_ONLY_COUNTERS) == sorted(want_c)
     for k, v in want_c.items():
         assert got_c[k] == pytest.approx(v, rel=1e-9), k
 

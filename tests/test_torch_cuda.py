@@ -588,3 +588,79 @@ def test_dp_bit_kernel_at_degenerate_shapes(cuda, name, E, W, budget):
     assert banded_costs_bits.launches - before == int(bool(E))
     want_c, want_o = banded_costs_plain(*args)
     assert torch.equal(cost, want_c) and torch.equal(over, want_o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget,E", [(2, 4000), (0, 300), (7, 600), (2, 1),
+                                      (2, 0)])
+def test_proposal_bound_kernel_equals_lb_core(cuda, budget, E):
+    """The verify prep's bound kernel on the card equals the aligner's
+    numpy _lb_core (its plain version), one launch counted (none at E
+    = 0): windows of 1 to _LB_TAIL columns, front clips, the pad code, an
+    exit at every cap (test_torch_proposals.bound_case)."""
+    from hgtpu_torch.ops.proposal_bound import proposal_bound
+    from test_torch_proposals import bound_case
+
+    ga, args, want = bound_case(_dp_gene("deletion"), budget, E,
+                                seed=budget * 10 + E, device=cuda)
+    before = proposal_bound.launches
+    got = proposal_bound(*args)
+    torch.cuda.synchronize()
+    assert proposal_bound.launches == before + (E > 0)
+    assert got.dtype == torch.int8 and got.device.type == "cuda"
+    assert np.array_equal(got.cpu().numpy(), want)
+    if E > 100:
+        assert set(want.tolist()) == set(range(budget + 2))
+
+
+@pytest.mark.cuda
+def test_family_aligner_card_equals_cpu(cuda):
+    """A FamilyAligner on the card (router, per-gene alignment, the bound
+    kernel in the verify prep and the DP) gives the CPU's records on a
+    six-gene synthetic panel with stacked indels and sequencing errors;
+    every bounded entry was bounded on the card."""
+    import dataclasses
+
+    from hgtpu_torch.align import FamilyAligner
+    from hgtpu_torch.db import build_catalog_from_msa
+    from hgtpu_torch.ops.proposal_bound import proposal_bound
+    from hgtpu_torch.sim import simulate_reads
+    from hgtpu_torch.utils.trace import TRACE
+    from synth import make_gene_msa
+
+    msas = {g: make_gene_msa(gene=g, n_alleles=8, length=1500, n_del=24,
+                             n_ins=16, seed=41 + 7 * k)
+            for k, g in enumerate("ABCDEF")}
+    cat = build_catalog_from_msa("hla", {
+        g: dict(names=s["names"], rows=s["rows"], ref_allele=s["ref_allele"])
+        for g, s in msas.items()}, min_var_freq=0.0)
+    ids, seqs = [], []
+    for g, gene in cat.genes.items():
+        r1, _r2, _ = simulate_reads(gene, list(gene.allele_names[:2]),
+                                    simulate_interval=24,
+                                    perbase_errorrate=2.0, seed=5)
+        ids += [g + r.name for r in r1]
+        seqs += [r.seq for r in r1]
+    assert 300 <= len(seqs) <= 1000
+
+    def key(a):
+        if a is None:
+            return None
+        d = dataclasses.asdict(a)
+        d.pop("uid")
+        d["codes"] = bytes(d["codes"])
+        d["alts"] = None if a.alts is None else [key(x) for x in a.alts]
+        return d
+
+    before = proposal_bound.launches
+    c0 = TRACE.counters()
+    got = FamilyAligner(cat, device=cuda).align_batch(ids, seqs, "L")
+    c1 = TRACE.counters()
+    assert proposal_bound.launches > before
+    n = c1.get("verify.lb.entries", 0) - c0.get("verify.lb.entries", 0)
+    assert n > 0
+    assert c1.get("verify.lb.card", 0) - c0.get("verify.lb.card", 0) == n
+    want = FamilyAligner(cat, device="cpu").align_batch(ids, seqs, "L")
+    assert sorted(got) == sorted(want)
+    for g in want:
+        assert [key(a) for a in got[g]] == [key(a) for a in want[g]], g

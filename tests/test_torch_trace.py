@@ -352,6 +352,40 @@ def test_benchmark_reader_of_the_program_calls(sample, metric, stage):
     assert reader.read(dict(window=(t, t), samples=2, spans=[])) is None
 
 
+def test_benchmark_reader_of_the_bound_on_the_card(sample):
+    """verify_lb_card_pct: 100 * verify.lb.card / verify.lb.entries over
+    the window's calls: 0 where the aligner bound its entries on the CPU,
+    100 with a card run's counters, None where no call counted entries
+    (as at a program without the counters)."""
+    from hgtpu_torch.align import GeneAligner
+    from hgtpu_torch.sim import simulate_reads
+
+    reader = load(os.path.join(BENCH, "layer_metrics",
+                               "verify_lb_card_pct.py"),
+                  "bench_metric_verify_lb_card_pct")
+
+    def window(body):
+        t0 = time.perf_counter()
+        with TRACE.stage("call.type_reads"):
+            body()
+        return reader.read(dict(window=(t0, time.perf_counter()),
+                                samples=1, spans=[]))
+
+    assert window(lambda: None) is None
+    ref = sample[0]
+    r1, _r2, _ = simulate_reads(ref, [ref.allele_names[7]],
+                                simulate_interval=20, perbase_errorrate=3.0,
+                                seed=4)
+    ga = GeneAligner(ref, device="cpu")
+    assert window(lambda: ga.align_batch([r.name for r in r1],
+                                         [r.seq for r in r1], "L")) == 0.0
+
+    def card_run():
+        TRACE.count("verify.lb.entries", 4000)
+        TRACE.count("verify.lb.card", 4000)
+    assert window(card_run) == 100.0
+
+
 def test_benchmark_reader_of_the_pass_graph_hit_share(sample, monkeypatch):
     """pass_graph_hit_pct: 100 (1 - captures / dispatches) over the
     window's calls, with a stub capturer standing in for CUDA graphs on
