@@ -37,9 +37,7 @@ hgtpu_torch.pipeline.type_reads and checks them phase by phase:
   * hgtpu's devel runs on the port (hgtpu_torch.devel): the five golden
     command-line runs against devel/expected/, the full regression
     campaign, and the shard sweep of sharded_place and sharded_count;
-  * hgtpu's measurement tools on the port (hgtpu_torch.devel): the
-    reference emulator's anchor on this host, the bench's three cells,
-    the punt probe and one profiled scale run;
+  * the punt probe on the port (hgtpu_torch.devel.punts);
   * the edge cases hgtpu's own tests pin (hgtpu_torch.devel.edges):
     random-MSA, gap, variant-free, haplotype-window, partial-allele and
     errored genes and the path-changing options typed on the card, the
@@ -192,20 +190,9 @@ Phases:
              512 reads and hts per shard): every mesh's outputs equal one
              shard's; its JSON (sec, reads/s, efficiency per shard count;
              one card: per-shard overhead, not scaling); launches
-  bench      hgtpu_torch.devel: baseline_emu.measure_all (the emulator's
-             toy and scale anchor on this host, SAM input aligned on the
-             card; the same reads as the committed anchor's, the scale top
-             call a truth), bench.run on the card with that anchor (its
-             JSON on a line of its own; production_path "device", mfu and
-             bandwidth shares in (0, 100], its truth asserts; the scale
-             cell equal to the CPU host-fold run and to prod-scale under
-             the production contract; 2,000,000 records scanned; the routed
-             count equal to the CPU's on the same reads; launches counted
-             over the run), vs_baseline under both anchors, a host-engine
-             scale run (equal to the CPU's; placement, fold and DP FLOP
-             counters non-zero), punts.punt_stats on the scale panel at one
-             shard of the card equal to one CPU shard's, and one
-             profile.profile scale run (the top 15 lines)
+  punts      hgtpu_torch.devel.punts.punt_stats on the scale panel at one
+             shard of the card equal to one CPU shard's (punt, excl,
+             causes, tier-1 mates, anatomy)
   edges      hgtpu_torch.devel.edges' 16 cases (tests/test_fuzz.py's
              four random-MSA genes, its gap and variant-free genes,
              test_haplotype_paths.py's two-indel gene with a recombinant
@@ -252,9 +239,8 @@ records at the router's shape and the proposal bound's, "path":
 "family"), launches_assembly the assembly phase's scale run's,
 launches_mesh the mesh phase's 2-shard
 run's, launches_golden the five golden children's, launches_campaign the
-campaign phase's, launches_scaling the shard sweep's, launches_bench the
-bench's three cells' (warm-ups included), launches_edges the edge
-cases' (summed over the cases), max_abs_err over
+campaign phase's, launches_scaling the shard sweep's, launches_edges the
+edge cases' (summed over the cases), max_abs_err over
 every shape checked.  "kernels" lists the kernels of the path;
 "off_path" the wide K2 variant, which no table of the path takes, and
 the warp DP kernel, which no budget of the path takes.
@@ -2146,157 +2132,27 @@ def scaling_phase(counts, reset, smi):
     return launches
 
 
-def bench_phase(big, big_gpu, big_ref, prod_res, truths, b1, b2, dev, counts,
-                reset, work, smi):
-    """hgtpu's measurement tools on the card (hgtpu_torch.devel: the
-    twins of bench.py, devel/baseline_emu.py, measure_punts.py and
-    profile_scale.py).  The emulator's anchor measured on this host (its
-    SAM input aligned on the card), printed beside the committed one (a
-    2-CPU VM's): the same reads, the scale top call a truth.  The bench's
-    three cells on the card with this host's anchor (counts set to 0 just
-    before, read just after), its JSON on a line of its own: the
-    production path, mfu and bandwidth shares in (0, 100], its asserts
-    held; the scale cell's result (its reads are b1, b2: seed 1, the same
-    truths) equal to the CPU host-fold run and to prod-scale's under the
-    production contract; 2,000,000 records scanned and the routed count
-    equal to the same reads routed on the CPU; vs_baseline under both
-    anchors.  A host-engine run of the scale cell: equal to the CPU run,
-    its placement, fold and DP FLOP counters non-zero.  The punt probe on
-    the scale panel at one shard of the card: punt, excl, causes and
-    tier-1 mates equal to one CPU shard's.  One profiled warm scale run:
-    the top 15 lines.  Returns the bench's launches."""
-    import torch
-    from hgtpu_torch.devel import baseline_emu, bench, profile, punts
+def punts_phase(dev, smi):
+    """The punt probe (hgtpu_torch.devel.punts, the twin of
+    measure_punts.py) on the scale panel at one shard of the card: punt,
+    excl, causes, tier-1 mates and the punted reads' anatomy equal to one
+    CPU shard's."""
+    from hgtpu_torch.devel import punts
     from hgtpu_torch.parallel.sharded import make_mesh
-    from hgtpu_torch.typer import TypingOptions
 
-    t_phase = time.perf_counter()
-    root = os.path.join(work, "bench")
-    os.makedirs(root, exist_ok=True)
-
-    # ---- the emulator's anchor on this host ---- #
-    t0 = time.perf_counter()
-    anchor = baseline_emu.measure_all(dev)
-    anchor_path = os.path.join(root, "BASELINE_MEASURED.json")
-    with open(anchor_path, "w") as f:
-        json.dump(anchor, f, indent=1)
-    committed = bench.load_baseline()
-    for cell in ("toy", "scale"):
-        a, c = anchor[cell], committed[cell]
-        if (a["reads"], a["reads_used"]) != (c["reads"], c["reads_used"]):
-            raise AssertionError("bench: the emulator's %s reads %s, the "
-                                 "committed anchor's %s" % (cell, a, c))
-        log("bench: emulator %s on this host (%s, %d CPUs): %.1f reads/s "
-            "(%d reads, %.3f s, top %s); committed anchor (host %s, %d "
-            "CPUs): %.1f reads/s (%.3f s, top %s)"
-            % (cell, anchor["host"], anchor["cpu_count"], a["reads_per_s"],
-               a["reads"], a["seconds"], a["top_call"], committed["host"],
-               committed["cpu_count"], c["reads_per_s"], c["seconds"],
-               c["top_call"]))
-    if anchor["scale"]["top_call"] not in truths:
-        raise AssertionError("bench: the emulator's scale top call %s is not "
-                             "a truth" % anchor["scale"]["top_call"])
-    log("bench: emulator %.1f s; anchor in %s"
-        % (time.perf_counter() - t0, os.path.relpath(anchor_path, ROOT)))
-
-    # ---- the bench's three cells on the card, this host's anchor ---- #
-    reset()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out, runs = bench.run(dev, baseline=anchor_path)
-    bench_s = time.perf_counter() - t0
-    launches = counts()
-    log(json.dumps(out))
-    if out["production_path"] != "device":
-        raise AssertionError("bench: production_path %s"
-                             % out["production_path"])
-    if out["baseline_anchor"]["host"] != anchor["host"]:
-        raise AssertionError("bench: the JSON names the anchor of host %s"
-                             % out["baseline_anchor"]["host"])
-    for k in ("mfu_pct", "hla_scale_mfu_pct", "bandwidth_pct",
-              "hla_scale_bandwidth_pct"):
-        if not 0 < out[k] <= 100:
-            raise AssertionError("bench: %s = %s" % (k, out[k]))
-    bres, stages, ctr = runs["scale"]
-    check_truths(bres, truths, "bench scale")
-    err = same_production(bres, big_ref, "bench scale")
-    same_production(bres, prod_res, "bench scale against prod-scale")
-    if any(stage in stages and ctr.get(k, 0) <= 0 for stage, k in (
-            ("rescue.align", "flops.placement"),
-            ("rescue.fold", "flops.device_fold"))):
-        raise AssertionError("bench: the scale cell's FLOP counters %s"
-                             % ctr)
-    need = ["placement_scores"] + (["and_reduce_slab"] if "rescue.fold"
-                                   in stages else [])
-    if any(launches[k] <= 0 for k in need) or launches["banded_dp_warp"]:
-        raise AssertionError("bench: launches %s" % launches)
-    ext = runs["extract"]
-    if ext["n_records"] != bench.N_SCAN:
-        raise AssertionError("bench: %d records scanned" % ext["n_records"])
-    t0 = time.perf_counter()
-    ex_cpu, _ = bench.family_extractor("cpu")
-    routed_cpu = bench.routed_count(ex_cpu.extract(ext["reads_1"], None))
-    cpu_route_s = time.perf_counter() - t0
-    if routed_cpu != ext["routed_n"]:
-        raise AssertionError("bench: %d reads routed on the card, %d on the "
-                             "CPU" % (ext["routed_n"], routed_cpu))
-    vs_committed = out["value"] / committed["scale"]["reads_per_s"]
-    log("bench: scale cell equals the CPU host-fold run and prod-scale's "
-        "(prob max diff %.3g); scale counters %s; %d of %d reads routed, "
-        "equal to the CPU run (%.1f s); launches %s; run %.1f s"
-        % (err, {k: ctr[k] for k in sorted(ctr)}, ext["routed_n"],
-           bench.N_ROUTE, cpu_route_s, launches, bench_s))
-    log("bench: vs_baseline %.3f under this host's anchor (%s, %.1f reads/s)"
-        ", %.3f under the committed anchor (a 2-CPU VM, %.1f reads/s); toy "
-        "%.3f / %.3f; %s"
-        % (out["vs_baseline"], anchor["host"],
-           anchor["scale"]["reads_per_s"], vs_committed,
-           committed["scale"]["reads_per_s"], out["vs_baseline_toy"],
-           out["toy_e2e_reads_per_s"] / committed["toy"]["reads_per_s"],
-           smi))
-
-    # ---- the host engine's FLOP counters (placement, fold, DP) ---- #
-    host_opts = TypingOptions(simulation=True, device_typing="off")
-    dt, hres, hst, hctr, _ = bench._measure(big, b1, b2, big_gpu, host_opts,
-                                            repeats=1)
-    same_result(hres, big_ref, "bench host-engine scale")
-    need = ["flops.placement", "flops.device_fold"] + (
-        ["flops.device_dp"] if "verify.device_dp" in hst else [])
-    for k in need:
-        if hctr.get(k, 0) <= 0:
-            raise AssertionError("bench: host-engine counter %s is %s"
-                                 % (k, hctr.get(k)))
-    peak_bf16 = bench.card_peaks(dev)[0]
-    log("bench: host-engine scale run %.3f s, equal to the CPU run; "
-        "counters %s; mfu %.4f %%"
-        % (dt, {k: hctr[k] for k in sorted(hctr)},
-           100 * sum(hctr.get(k, 0) for k in bench.FLOP_COUNTERS) / dt
-           / peak_bf16))
-
-    # ---- the punt probe: one shard of the card against one CPU shard ---- #
     t0 = time.perf_counter()
     pref, p1, p2 = punts.build("scale")
     got = punts.punt_stats(pref, p1, p2, make_mesh(1, dev))
     want = punts.punt_stats(pref, p1, p2, make_mesh(1, "cpu"))
     keys = ("pairs", "punt", "excl", "causes", "tier1", "anatomy")
     if any(got[k] != want[k] for k in keys):
-        raise AssertionError("bench: punts on the card %s, on the CPU %s"
+        raise AssertionError("punts: on the card %s, on the CPU %s"
                              % ({k: got[k] for k in keys},
                                 {k: want[k] for k in keys}))
     punts.report("scale", pref, got, dev)
-    log("bench: punts equal to one CPU shard's (card count_classes %.3f s, "
-        "CPU %.3f s); probe %.1f s" % (got["wall"], want["wall"],
-                                      time.perf_counter() - t0))
-
-    # ---- one profiled warm scale run ---- #
-    stats, dt, n = profile.profile(dev)
-    log("bench: profiled scale run %.3f s (%d reads, %.1f reads/s under "
-        "cProfile)" % (dt, n, n / dt))
-    for line in profile.top_lines(stats, "tottime", 15).splitlines():
-        if line.strip():
-            log("  profile: " + line)
-    log("bench: phase wall %.1f s" % (time.perf_counter() - t_phase))
-    return launches
+    log("punts: equal to one CPU shard's (card count_classes %.3f s, CPU "
+        "%.3f s); phase wall %.1f s; %s" % (got["wall"], want["wall"],
+                                            time.perf_counter() - t0, smi))
 
 
 def edges_bam_runs(big, b1, b2, work):
@@ -3175,12 +3031,9 @@ def main():
                                        asm_scale_call, smi)
     scaling_launches = scaling_phase(counts, reset, smi)
 
-    # ---- 13. hgtpu's measurement tools on the card: the emulator's
-    # anchor on this host, the bench's three cells (launches counted over
-    # them), the punt probe, one profiled run ---- #
-    bench_launches = bench_phase(big, big_gpu, big_ref,
-                                 runs["prod-scale"][0], truths, b1, b2, dev,
-                                 counts, reset, work, smi)
+    # ---- 13. the punt probe: one shard of the card against one CPU
+    # shard ---- #
+    punts_phase(dev, smi)
 
     # ---- 14. hgtpu's edge cases: the edge genes on the card (launches
     # counted per case), the kernels at degenerate shapes, a BAM the
@@ -3196,7 +3049,6 @@ def main():
         rec["launches_golden"] = golden_launches[rec["name"]]
         rec["launches_campaign"] = campaign_launches[rec["name"]]
         rec["launches_scaling"] = scaling_launches[rec["name"]]
-        rec["launches_bench"] = bench_launches[rec["name"]]
         rec["launches_edges"] = edges_launches[rec["name"]]
     for name in ("placement_scores", "and_reduce_slab", "banded_dp_bits"):
         if host_launches[name] <= 0:

@@ -8,20 +8,14 @@
              (devel/campaign.py)
   scaling    the sharded place and count sweep over 1, 2, 4 and 8 shards
              (scripts/scaling_bench.py)
-  bench      end-to-end typing throughput: the toy, the 3,600-allele het
-             pair and WGS-volume extraction, one JSON line (bench.py)
-  baseline_emu  the reference typing hot loop's emulator, the bench's
-             anchor measured on this host (devel/baseline_emu.py)
   punts      punt and exclusion rates, causes and tiers of count_classes
              (devel/measure_punts.py)
-  profile    cProfile of one warm scale typing run (devel/profile_scale.py)
   edges      the edge-case genes and read sets hgtpu's tests pin
              (tests/test_fuzz.py, test_haplotype_paths.py, ...), as data;
              the kernels' degenerate shapes
 
 Each runs on the card unless asked for the CPU (``device="cpu"`` or
-``HGTPU_TORCH_DEVICE=cpu``; profile: ``--cpu``), and imports nothing of
-hgtpu or jax; the
+``HGTPU_TORCH_DEVICE=cpu``), and imports nothing of hgtpu or jax; the
 synthetic generators come from tests/synth.py, which is jax-free.
 """
 import os

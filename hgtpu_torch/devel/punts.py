@@ -5,7 +5,7 @@
     python -m hgtpu_torch.devel.punts [scale|toy] [--shards N]
         [--device DEV]
 
-Builds the bench's scale panel (3,600 alleles / 3.5 kb) or the toy gene
+Builds the scale panel (3,600 alleles / 3.5 kb) or the toy gene
 (60 alleles / 3 kb) at min_var_freq 0.1, simulates the heterozygous pair
 allele_names[123 % n] and [2047 % n] at interval 1 (seed 1), and runs
 `ShardedTyper(gene, mesh=make_mesh(shards, device)).count_classes` once:

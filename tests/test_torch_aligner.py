@@ -4,7 +4,6 @@ and without sequencing errors."""
 import dataclasses
 
 import pytest
-import torch
 
 from hgtpu.align import GeneAligner as JaxAligner
 from hgtpu.db import build_gene_ref
@@ -12,14 +11,7 @@ from hgtpu.sim import simulate_reads
 from hgtpu_torch.align import GeneAligner
 from tests.synth import make_gene_msa
 from tests.test_torch_db import carried
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 
 def _record(aln):

@@ -19,7 +19,6 @@ import re
 
 import numpy as np
 import pytest
-import torch
 
 import hgtpu.typer.engine as jax_engine
 from hgtpu.assemble import graph as jax_graph
@@ -36,16 +35,9 @@ from hgtpu_torch.typer.alts import VarTable
 from hgtpu_torch.typer.engine import TypingOptions
 from tests.synth import make_gene_msa
 from tests.test_torch_db import carried
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _gene(min_var_freq=0.0):

@@ -9,9 +9,6 @@ hgtpu's 60 s wall budget.
 """
 import time
 
-import pytest
-import torch
-
 from hgtpu.db import build_gene_ref
 from hgtpu.pipeline import type_reads as jax_type_reads
 from hgtpu.sim import simulate_reads
@@ -20,14 +17,7 @@ from hgtpu_torch.pipeline import type_reads
 from hgtpu_torch.typer.engine import TypingOptions
 from tests.synth import make_hla_scale_msa
 from tests.test_torch_db import carried
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 
 def test_assembly_at_scale_equals_hgtpu():

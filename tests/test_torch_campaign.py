@@ -19,22 +19,12 @@ import importlib.util
 import os
 
 import pytest
-import torch
 
 from hgtpu_torch.devel import campaign
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _JAX = {}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    # beside the other test workers: two intra-op threads, as the other
-    # torch test files take
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def hgtpu_campaign():

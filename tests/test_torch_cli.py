@@ -42,6 +42,7 @@ import hgtpu_torch.cli.toolkit as toolkit
 from hgtpu_torch.utils.bam import write_bam
 from tests.synth import make_family, make_gene_msa, make_nuc_msa
 from tests.test_torch_textdb import _write_msf
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

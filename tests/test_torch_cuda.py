@@ -20,6 +20,7 @@ from hgtpu_torch.ops.compat_kernel import (and_reduce, and_reduce_plain,
                                            k2_plan)
 from hgtpu_torch.ops.placement_kernel import (placement_scores,
                                               placement_scores_plain)
+from torch_threads import _torch_threads  # noqa: F401
 
 
 @pytest.fixture

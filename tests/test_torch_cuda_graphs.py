@@ -25,6 +25,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import _torch_threads  # noqa: F401
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH = os.path.join(ROOT, "benchmark")

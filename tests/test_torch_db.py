@@ -27,6 +27,7 @@ from hgtpu_torch.db import (Catalog, GeneRef, build_gene_ref,
                             gene_from_fields, load_npz, save_npz)
 from hgtpu_torch.sim import parse_truth_name, simulate_reads
 from tests.synth import make_gene_msa, make_hla_scale_msa, make_nuc_msa
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 
 def _spec(case):

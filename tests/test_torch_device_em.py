@@ -39,14 +39,7 @@ from tests.synth import make_gene_msa
 from tests.test_em import _random_classes
 from tests.test_torch_db import carried
 from tests.test_torch_e2e_passes import truths
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("seed,with_len", [(5, False), (7, True),

@@ -14,7 +14,6 @@ import random
 
 import numpy as np
 import pytest
-import torch
 
 from hgtpu.db import build_gene_ref
 from hgtpu.parallel.e2e import ShardedTyper as JaxTyper
@@ -24,14 +23,7 @@ from hgtpu_torch.parallel import e2e
 from hgtpu_torch.parallel.e2e import ShardedTyper
 from tests.test_torch_db import carried
 from tests.test_torch_e2e_passes import ERRS, indel_ref, truths  # noqa: F401
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

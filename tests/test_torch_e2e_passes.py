@@ -29,16 +29,9 @@ from hgtpu_torch.parallel.e2e import ShardedTyper
 from tests.synth import make_gene_msa
 from tests.test_torch_db import carried
 from tests.test_torch_e2e_tables import as_numpy
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 ERRS = (0.0, 5.0)     # per-base error, in percent (the simulator's unit)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -23,14 +23,7 @@ from hgtpu_torch.parallel.e2e import (ShardedTyper, count_product,
                                       max_overlap, tables_from_arrays)
 from tests.synth import make_gene_msa
 from tests.test_torch_db import carried
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 
 def _toy():

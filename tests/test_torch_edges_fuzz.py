@@ -20,7 +20,6 @@ on a random backbone, and the variant-free gene of :46.
 import functools
 
 import pytest
-import torch
 
 from hgtpu.db import build_gene_ref as jax_build_gene_ref
 from hgtpu.db.catalog import GeneRef as JaxGeneRef
@@ -29,14 +28,7 @@ from hgtpu_torch.devel import edges
 from tests.test_torch_db import assert_same_gene
 from tests.test_torch_production import (assert_host_contract,
                                          assert_same_result, three_ways)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 
 @functools.lru_cache(maxsize=None)

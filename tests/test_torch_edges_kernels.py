@@ -31,6 +31,7 @@ from hgtpu_torch.ops.compat_kernel import (and_reduce, and_reduce_slab,
                                            and_reduce_wide)
 from hgtpu_torch.ops.placement_kernel import placement_scores
 from tests.test_torch_db import carried
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("n,m,P1", edges.K1_SHAPES)

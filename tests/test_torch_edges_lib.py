@@ -37,6 +37,7 @@ from hgtpu_torch.utils import bam, io as port_io
 from tests.synth import make_family, make_gene_msa
 from tests.test_bam import _recs
 from tests.test_torch_db import assert_same_gene, carried
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 
 # ---- write_bam and its record encoder ---- #

@@ -21,8 +21,8 @@ import pytest
 from hgtpu_torch.parallel.production import device_typing_supported
 from hgtpu_torch.typer.engine import TypingOptions
 from hgtpu_torch.devel import edges
-from tests.test_torch_edges_fuzz import (case_of, check_case,  # noqa: F401
-                                         _torch_threads)
+from tests.test_torch_edges_fuzz import case_of, check_case
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("name", ["use-alts-off", "no-error-correction"])

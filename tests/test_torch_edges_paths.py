@@ -21,7 +21,6 @@ for field, and to the port's host engine under the host contract.
               base) at 900 bp: the truth is called.
 """
 import pytest
-import torch
 
 from hgtpu.pipeline import type_reads as jax_type_reads
 from hgtpu.typer.engine import TypingOptions as JaxOptions
@@ -29,10 +28,10 @@ from hgtpu_torch.devel import edges
 from hgtpu_torch.pipeline import type_reads
 from hgtpu_torch.typer.engine import TypingOptions
 from tests.test_torch_db import assert_same_gene, carried
-from tests.test_torch_edges_fuzz import (check_case, hgtpu_gene, run_case,
-                                         _torch_threads)  # noqa: F401
+from tests.test_torch_edges_fuzz import check_case, hgtpu_gene, run_case
 from tests.test_torch_production import (assert_host_contract,
                                          assert_same_result, three_ways)
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("name", ["two_indels", "partial", "errors"])

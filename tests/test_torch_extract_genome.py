@@ -16,7 +16,6 @@ import random
 
 import numpy as np
 import pytest
-import torch
 
 from hgtpu.db import build_catalog_from_msa as jax_build_catalog
 from hgtpu.db.genome import build_genotype_genome as jax_build_genome
@@ -35,17 +34,10 @@ from hgtpu_torch.pipeline import (GenomeExtractor, type_family,
 from tests.synth import make_family
 from tests.test_torch_db import assert_same_gene
 from tests.test_torch_slice import assert_same_result
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 _FILES = (".fa", ".coord", ".locus", ".snp", ".index.snp", ".haplotype",
           ".link", ".allele", ".partial", ".clnsig")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _spec(fam, g):

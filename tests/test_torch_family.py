@@ -13,7 +13,6 @@ import random
 
 import numpy as np
 import pytest
-import torch
 
 import hgtpu.pipeline.genotype as jax_genotype
 import hgtpu_torch.pipeline.genotype as genotype
@@ -33,14 +32,7 @@ from tests.synth import make_family
 from tests.test_torch_aligner import _record
 from tests.test_torch_db import assert_same_gene
 from tests.test_torch_slice import assert_same_result
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 
 def _catalogs(fam):

@@ -19,6 +19,7 @@ from hgtpu_torch.pipeline import type_family
 from hgtpu_torch.sim import simulate_reads
 from hgtpu_torch.typer import TypingOptions
 from hgtpu_torch.utils.trace import TRACE
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 DEL = (450, 452)          # A's catalogued deletion, backbone columns
 

@@ -15,7 +15,6 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
 
 from hgtpu.align.linear import LinearAligner as JaxLinear
 from hgtpu.db import build_gene_ref as jax_build_gene_ref
@@ -31,14 +30,7 @@ from hgtpu_torch.ops.fm import FMIndex, pack_queries
 from hgtpu_torch.pipeline import type_reads, type_reads_linear
 from hgtpu_torch.typer import TypingOptions
 from tests.synth import make_gene_msa
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 
 def _text(seed, n):

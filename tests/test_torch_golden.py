@@ -20,6 +20,7 @@ import os
 import pytest
 
 from hgtpu_torch.devel import golden, testdb
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -44,13 +45,6 @@ def test_testdb_equals_hgtpus(tmp_path):
 @pytest.fixture(scope="module")
 def db(tmp_path_factory):
     return testdb.ensure(str(tmp_path_factory.mktemp("testdb")))
-
-
-@pytest.fixture(autouse=True)
-def _child_threads(monkeypatch):
-    # beside the other test workers: two intra-op threads in each child,
-    # as the other torch test files take
-    monkeypatch.setenv("OMP_NUM_THREADS", "2")
 
 
 @pytest.mark.parametrize("mode", ["auto", "on"])

@@ -9,11 +9,14 @@ genome, runs the command line's simulation on a text database the port
 wrote and the toolkit's compare, and the golden run hg_test1 (its
 `python -m hgtpu_torch` child blocked too); and no source file of the
 port (hgtpu_torch.devel included), nor chip_smoke.py or measure_gpu.py,
-imports jax or hgtpu."""
+imports jax or hgtpu.  Every port test file takes the one thread policy
+of tests/torch_threads.py and defines no thread fixture of its own."""
 import ast
 import os
 import subprocess
 import sys
+
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -22,15 +25,14 @@ import importlib, os, pkgutil, sys
 sys.modules["jax"] = None          # any import of jax now raises
 sys.modules["hgtpu"] = None        # and any import of the JAX package
 import torch
-torch.set_num_threads(2)
 import hgtpu_torch
 walked = set()
 for m in pkgutil.walk_packages(hgtpu_torch.__path__, "hgtpu_torch."):
     importlib.import_module(m.name)
     walked.add(m.name)
 assert {"hgtpu_torch.devel." + m for m in
-        ("testdb", "golden", "campaign", "scaling", "bench", "baseline_emu",
-         "punts", "profile")} <= walked, walked
+        ("testdb", "golden", "campaign", "scaling", "punts", "edges")
+        } <= walked, walked
 sys.path.insert(0, "tests")
 from synth import make_gene_msa
 from hgtpu_torch.db import build_gene_ref
@@ -195,9 +197,31 @@ def test_no_source_imports_jax():
     assert len(paths) > 30
     devel = os.path.join(ROOT, "hgtpu_torch", "devel")
     assert {os.path.join(devel, m + ".py") for m in
-            ("__init__", "testdb", "golden", "campaign", "scaling", "bench",
-             "baseline_emu", "punts", "profile")} <= set(paths)
+            ("__init__", "testdb", "golden", "campaign", "scaling", "punts",
+             "edges")} <= set(paths)
     for path in paths:
         for name in _imports(path):
             # hgtpu_torch is the port itself; jax and hgtpu are refused
             assert name.split(".")[0] not in ("jax", "hgtpu"), (path, name)
+
+
+def test_every_port_test_file_takes_the_shared_thread_policy():
+    files = sorted(f for f in os.listdir(os.path.join(ROOT, "tests"))
+                   if f.startswith("test_torch_") and f.endswith(".py"))
+    assert len(files) > 40
+    for f in files:
+        tree = ast.parse(open(os.path.join(ROOT, "tests", f)).read(), f)
+        # the card's test files import it from tests/ on sys.path, as
+        # they import synth: an installed package named tests shadows ours
+        assert any(isinstance(node, ast.ImportFrom)
+                   and node.module in ("tests.torch_threads", "torch_threads")
+                   and "_torch_threads" in [a.name for a in node.names]
+                   for node in tree.body), f
+        for fn in ast.walk(tree):
+            if isinstance(fn, ast.FunctionDef) and any(
+                    "fixture" in ast.unparse(d) for d in fn.decorator_list):
+                assert not any(
+                    isinstance(c, ast.Call)
+                    and isinstance(c.func, ast.Attribute)
+                    and c.func.attr == "set_num_threads"
+                    for c in ast.walk(fn)), (f, fn.name)

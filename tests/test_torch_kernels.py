@@ -31,14 +31,7 @@ from hgtpu_torch.ops.compat_kernel import (and_reduce, and_reduce_plain,
                                            k2_plan)
 from hgtpu_torch.ops.placement_kernel import (k16_operands, placement_scores,
                                               placement_scores_plain)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 
 def _pwm_reads(seed, n, m, P, periodic=False):

@@ -27,16 +27,9 @@ from hgtpu_torch.parallel.sharded import Sharded, make_mesh
 from tests.test_torch_db import carried
 from tests.test_torch_e2e_count import assert_same_dict, run
 from tests.test_torch_e2e_passes import indel_ref, truths  # noqa: F401
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 MESHES = (1, 2, 8)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 class MeshTypers:

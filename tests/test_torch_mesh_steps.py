@@ -22,6 +22,7 @@ from hgtpu_torch.parallel import sharded
 from hgtpu_torch.parallel.sharded import Sharded, make_mesh
 from tests.synth import make_gene_msa
 from tests.test_torch_db import carried
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

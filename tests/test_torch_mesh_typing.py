@@ -22,7 +22,6 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
 
 from hgtpu.parallel import sharded as jax_sharded
 from hgtpu.parallel.e2e import ShardedTyper as JaxTyper
@@ -38,8 +37,9 @@ from tests.synth import make_gene_msa
 from tests.test_torch_db import carried
 from tests.test_torch_e2e_count import assert_same_dict, run
 from tests.test_torch_e2e_passes import indel_ref, truths  # noqa: F401
-from tests.test_torch_mesh import _torch_threads, reads, typers  # noqa: F401
+from tests.test_torch_mesh import reads, typers  # noqa: F401
 from tests.test_torch_production import assert_same_result
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("n", [2, 8])

@@ -44,6 +44,8 @@ import textwrap
 
 import pytest
 
+from tests.torch_threads import _torch_threads  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PRELUDE = textwrap.dedent("""
@@ -52,7 +54,6 @@ _PRELUDE = textwrap.dedent("""
     sys.path.insert(0, %r)
     import numpy as np
     import torch
-    torch.set_num_threads(2)
     pid, port = int(sys.argv[1]), sys.argv[2]
     from hgtpu_torch.parallel.multihost import init_distributed
     assert init_distributed("localhost:" + port, 2, pid,
@@ -266,7 +267,6 @@ def run_ranks(worker, timeout, *args):
 
 def test_distributed_call_equals_one_process():
     import numpy as np
-    import torch
 
     from hgtpu_torch.entry import _tiny_gene
     from hgtpu_torch.parallel.e2e import ShardedTyper
@@ -280,17 +280,12 @@ def test_distributed_call_equals_one_process():
     assert name == "T*23" and prob > 0.99
 
     gene = _tiny_gene()
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    try:
-        typer = ShardedTyper(gene, read_len=64, em_iters=100,
-                             mesh=make_mesh(8, "cpu"))
-        seq = gene.allele_seq("T*23")
-        reads = [seq[i:i + 64] for i in range(0, len(seq) - 63, 3)]
-        sp_name, sp_prob, sp_totals, sp_used = typer.call_allele(
-            pad_reads(typer.encode(reads), 8))
-    finally:
-        torch.set_num_threads(n)
+    typer = ShardedTyper(gene, read_len=64, em_iters=100,
+                         mesh=make_mesh(8, "cpu"))
+    seq = gene.allele_seq("T*23")
+    reads = [seq[i:i + 64] for i in range(0, len(seq) - 63, 3)]
+    sp_name, sp_prob, sp_totals, sp_used = typer.call_allele(
+        pad_reads(typer.encode(reads), 8))
     assert sp_name == name
     assert abs(sp_prob - prob) < 1e-6
     assert sp_used == n_used
@@ -298,8 +293,6 @@ def test_distributed_call_equals_one_process():
 
 
 def test_production_typing_lossless_equals_one_process_and_hgtpu():
-    import torch
-
     from hgtpu.db import build_gene_ref as jax_build
     from hgtpu.db.catalog import VT_DELETION, VT_INSERTION
     from hgtpu.parallel.production import type_reads_device as jax_device
@@ -328,15 +321,10 @@ def test_production_typing_lossless_equals_one_process_and_hgtpu():
                                perbase_errorrate=0.03)
     R1 = [(r.name, r.seq) for r in s1]
     R2 = [(r.name, r.seq) for r in s2]
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    try:
-        single = type_reads_device(
-            carried(ref), R1, R2,
-            TypingOptions(simulation=True, device_typing="on"),
-            mesh=make_mesh(2, "cpu"))
-    finally:
-        torch.set_num_threads(n)
+    single = type_reads_device(
+        carried(ref), R1, R2,
+        TypingOptions(simulation=True, device_typing="on"),
+        mesh=make_mesh(2, "cpu"))
     want = jax_device(ref, R1, R2,
                       JaxOptions(simulation=True, device_typing="on"),
                       mesh=jax_mesh(2))
@@ -352,8 +340,6 @@ def test_production_typing_lossless_equals_one_process_and_hgtpu():
 
 @pytest.mark.parametrize("names", ["simulated", "reversed"])
 def test_novel_variants_on_two_ranks_equal_one_process_and_hgtpu(names):
-    import torch
-
     from hgtpu.parallel.production import type_reads_device as jax_device
     from hgtpu.parallel.sharded import make_mesh as jax_mesh
     from hgtpu.typer.engine import TypingOptions as JaxOptions
@@ -376,14 +362,9 @@ def test_novel_variants_on_two_ranks_equal_one_process_and_hgtpu(names):
     spec = make_gene_msa(seed=3, n_alleles=40)
     jref, _ = jax_build("A", spec["names"], spec["rows"], spec["ref_allele"],
                         min_var_freq=8.0)
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    try:
-        single = type_reads_device(
-            ref, R1, R2, TypingOptions(simulation=True, device_typing="on"),
-            mesh=make_mesh(1, "cpu"))
-    finally:
-        torch.set_num_threads(n)
+    single = type_reads_device(
+        ref, R1, R2, TypingOptions(simulation=True, device_typing="on"),
+        mesh=make_mesh(1, "cpu"))
     want = jax_device(jref, R1, R2,
                       JaxOptions(simulation=True, device_typing="on"),
                       mesh=jax_mesh(1))

@@ -20,6 +20,7 @@ import torch
 from hgtpu_torch.parallel import graphs
 from hgtpu_torch.parallel.graphs import Card, PassGraphs
 from hgtpu_torch.utils.trace import TRACE
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 
 class Stub:

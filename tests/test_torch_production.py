@@ -33,14 +33,7 @@ from hgtpu_torch.pipeline.genotype import _take_device_path
 from hgtpu_torch.typer.engine import TypingOptions
 from tests.test_torch_db import carried
 from tests.test_torch_e2e_passes import indel_ref, truths  # noqa: F401
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 
 def assert_same_result(got, want):

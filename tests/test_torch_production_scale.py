@@ -8,7 +8,6 @@ the port's production result equals hgtpu's field for field and the
 port's host path under that file's contract.
 """
 import pytest
-import torch
 
 from hgtpu.db import build_gene_ref
 from tests.synth import make_hla_scale_msa
@@ -17,14 +16,7 @@ from tests.test_torch_e2e_passes import indel_ref, truths  # noqa: F401
 from tests.test_torch_production import (assert_host_contract,
                                          assert_same_result, pairs,
                                          three_ways)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("interval,err", [(8, 0.03), (10, 0.03), (8, 0.05)])

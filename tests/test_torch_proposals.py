@@ -35,6 +35,7 @@ from hgtpu_torch.ops.proposal_bound import (pack_entries, pack_mask,
 from hgtpu_torch.sim import simulate_reads
 from hgtpu_torch.utils.trace import TRACE, to_host
 from synth import make_gene_msa
+from torch_threads import _torch_threads  # noqa: F401
 
 
 def proposal_meta(ga, cand_pos, cand_scores, m, max_clip_frac=0.35):

@@ -10,7 +10,6 @@ import dataclasses
 from collections import defaultdict
 
 import pytest
-import torch
 
 from hgtpu.align import GeneAligner as JaxAligner
 from hgtpu.align.sam import read_sam as jax_read_sam
@@ -27,14 +26,7 @@ from hgtpu_torch.typer import TypingOptions
 from tests.synth import make_gene_msa
 from tests.test_torch_aligner import _record
 from tests.test_torch_slice import assert_same_result
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 
 def _groups(aligner, r1, r2):

@@ -16,21 +16,11 @@ import json
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from hgtpu_torch.devel import scaling
 from hgtpu_torch.parallel.sharded import make_mesh
 from hgtpu_torch.typer.device_count import DeviceCounter
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    # beside the other test workers: two intra-op threads, as the other
-    # torch test files take
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("n", [1, 2])

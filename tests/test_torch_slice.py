@@ -11,7 +11,6 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
 
 from hgtpu.db import build_gene_ref
 from hgtpu.pipeline import type_reads as jax_type_reads
@@ -21,14 +20,7 @@ from hgtpu_torch.pipeline import simulation_sweep, type_reads
 from hgtpu_torch.typer.engine import TypingOptions
 from tests.synth import make_gene_msa
 from tests.test_torch_db import carried
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

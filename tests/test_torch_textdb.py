@@ -25,6 +25,7 @@ from hgtpu_torch.db import Catalog, gene_from_fields
 from hgtpu_torch.db.catalog import export_text, import_text
 from tests.synth import make_family, make_gene_msa, make_nuc_msa
 from tests.test_torch_db import assert_same_gene
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 _DB_FILES = ("_backbone.fa", "_sequences.fa", ".snp", ".index.snp",
              ".snp.freq", ".link", ".haplotype", ".locus", ".allele",

@@ -11,7 +11,6 @@ import dataclasses
 import random
 
 import pytest
-import torch
 
 from hgtpu.db import build_gene_ref as jax_build_gene_ref
 from hgtpu.pipeline import type_reads as jax_type_reads
@@ -28,14 +27,7 @@ from hgtpu_torch.typer.engine import TypingOptions
 from tests.synth import make_gene_msa
 from tests.test_torch_db import carried
 from tests.test_tools import _flanks, _genbank_record
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 
 def _pairs(reads):

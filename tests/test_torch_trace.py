@@ -14,6 +14,7 @@ import torch
 
 from hgtpu_torch.utils import trace as trace_mod
 from hgtpu_torch.utils.trace import TRACE, StageTimer
+from tests.torch_threads import _torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH = os.path.join(ROOT, "benchmark")
