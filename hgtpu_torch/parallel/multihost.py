@@ -238,7 +238,7 @@ def type_reads_device_distributed(gene, reads_1, reads_2=None, opts=None,
     from ..typer.engine import (GeneTypingResult, TypingOptions,
                                 _concordant)
     from ..typer.mpileup import Mpileup
-    from ..typer.staging import staged_abundance
+    from ..typer.staging import class_levels, staged_abundance
     from ..utils.trace import TRACE
     from .production import (_align_punts, _prepare_rescue,
                              _rescued_fragment_rows, _shared_sharded_typer)
@@ -370,11 +370,9 @@ def type_reads_device_distributed(gene, reads_1, reads_2=None, opts=None,
             if primary_stats is not None:
                 primary_stats.add_reads_batch(rp_g[order], w1)
 
-    full_cmpt = full_stats.cmpt_names()
-    exon_cmpt = exon_stats.cmpt_names() if exon_stats else {}
-    primary_cmpt = primary_stats.cmpt_names() if primary_stats else {}
-    prob = staged_abundance(gene, opts, full_cmpt, exon_cmpt,
-                            primary_cmpt,
+    levels, (full_cmpt, exon_cmpt, primary_cmpt) = class_levels(
+        full_stats, exon_stats, primary_stats)
+    prob = staged_abundance(gene, opts, *levels,
                             getattr(st, "_rep_groups", {}),
                             getattr(st, "_primary_groups", {}),
                             gene.allele_lengths())

@@ -648,18 +648,14 @@ def type_reads_device(gene: GeneRef, reads_1, reads_2=None,
     n_pairs += r_pairs
 
     with TRACE.stage("type.em"):
-        from ..typer.staging import staged_abundance
+        from ..typer.staging import class_levels, staged_abundance
 
-        with TRACE.stage("em.build"):
-            full_cmpt = full_stats.cmpt_names()
-            exon_cmpt = exon_stats.cmpt_names() if exon_stats else {}
-            primary_cmpt = primary_stats.cmpt_names() \
-                if primary_stats else {}
+        levels, (full_cmpt, exon_cmpt, primary_cmpt) = class_levels(
+            full_stats, exon_stats, primary_stats)
         rep_groups = getattr(st, "_rep_groups", {})
         primary_groups = getattr(st, "_primary_groups", {})
-        prob = staged_abundance(gene, opts, full_cmpt, exon_cmpt,
-                                primary_cmpt, rep_groups, primary_groups,
-                                gene.allele_lengths())
+        prob = staged_abundance(gene, opts, *levels, rep_groups,
+                                primary_groups, gene.allele_lengths())
 
     return GeneTypingResult(
         gene=gene.gene,

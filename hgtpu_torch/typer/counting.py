@@ -1,4 +1,6 @@
-# Copy of hgtpu/typer/counting.py; only the imports differ.
+# Copy of hgtpu/typer/counting.py; the imports differ, and the port hands
+# the staged EM its classes as masks (ClassLevel, name_order) where
+# hgtpu joins them into names (cmpt_names).
 """Read-haplotype -> allele compatibility counting.
 
 Vectorized re-formulation of the reference's add_count set algebra
@@ -16,6 +18,8 @@ Novel variants ('nv*', not in Links) never constrain — same as the
 reference's skip.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 
@@ -239,14 +243,19 @@ class StatAccumulator:
         return [(self.allele_names[i], int(self.counts[i]))
                 for i in order if self.counts[i] > 0]
 
-    def cmpt_names(self):
-        """{'A1-A2': count} with reference-style sorted-name keys."""
-        out = {}
-        for key, cnt in self.cmpt.items():
-            names = sorted(self.allele_names[i]
-                           for i in np.flatnonzero(self.cmpt_mask[key]))
-            out["-".join(names)] = out.get("-".join(names), 0) + cnt
-        return out
+    def classes(self):
+        """The classes as a ClassLevel: rows in first-seen order (as
+        dense() orders them), columns in name order; a class held under
+        two keys (packed and unpacked rows) is one row."""
+        names = name_order(self.allele_names)
+        C = len(self.cmpt)
+        if C:
+            M = np.stack(list(self.cmpt_mask.values())).take(names.order,
+                                                             axis=1)
+        else:
+            M = np.zeros((0, self.A), dtype=bool)
+        counts = np.fromiter(self.cmpt.values(), np.int64, C)
+        return ClassLevel.merged(M, counts, names)
 
     def dense(self):
         """(membership [C, A] bool, counts [C]) for the device EM."""
@@ -258,3 +267,86 @@ class StatAccumulator:
             M[i] = self.cmpt_mask[key]
             c[i] = cnt
         return M, c
+
+
+class NameOrder:
+    """A gene's alleles in the order `sorted` gives their names: allele
+    `order[r]` has name rank r, `rank` is its inverse, `sorted_names`
+    the names in rank order (an object array) and `index` maps a name to
+    its allele index.  Shared by every caller (name_order), so its
+    arrays are read-only."""
+
+    __slots__ = ("order", "rank", "sorted_names", "index")
+
+    def __init__(self, allele_names):
+        A = len(allele_names)
+        self.order = np.array(sorted(range(A), key=allele_names.__getitem__),
+                              dtype=np.int64)
+        self.rank = np.empty(A, dtype=np.int64)
+        self.rank[self.order] = np.arange(A)
+        self.sorted_names = np.array(allele_names, dtype=object)[self.order]
+        for a in (self.order, self.rank, self.sorted_names):
+            a.setflags(write=False)
+        self.index = {n: i for i, n in enumerate(allele_names)}
+
+
+@functools.lru_cache(maxsize=32)
+def _name_order(allele_names: tuple) -> NameOrder:
+    return NameOrder(allele_names)
+
+
+def name_order(allele_names) -> NameOrder:
+    """The NameOrder of an allele list, computed once per list."""
+    return _name_order(tuple(allele_names))
+
+
+class ClassLevel:
+    """One projection level's classes as the staged EM takes them: `M`
+    bool [C, A], row c the alleles of class c with column r the allele
+    of name rank r (`names.order[r]`), rows distinct and in first-seen
+    order; `counts` int64 [C]."""
+
+    __slots__ = ("M", "counts", "names")
+
+    def __init__(self, M, counts, names: NameOrder):
+        self.M = M
+        self.counts = counts
+        self.names = names
+
+    @classmethod
+    def merged(cls, M, counts, names):
+        """Equal rows of M merged into the first, their counts summed."""
+        if len(counts) > 1:
+            packed = np.packbits(M, axis=1)
+            keys = packed.view(np.dtype((np.void, packed.shape[1]))).ravel()
+            _, first, inv = np.unique(keys, return_index=True,
+                                      return_inverse=True)
+            sums = np.zeros(len(first), dtype=np.int64)
+            np.add.at(sums, inv.ravel(), counts)
+            keep = np.argsort(first)
+            M, counts = M[first[keep]], sums[keep]
+        return cls(M, counts, names)
+
+    def __len__(self):
+        return len(self.counts)
+
+    def cmpt(self) -> dict:
+        """{'A1-A2': count}, each key the class's allele names in sorted
+        order joined by '-', in row order."""
+        A = self.M.shape[1]
+        names = self.names.sorted_names.take(
+            np.flatnonzero(self.M) % A).tolist()
+        ends = np.cumsum(np.count_nonzero(self.M, axis=1)).tolist()
+        keys = ["-".join(names[s:e]) for s, e in zip([0] + ends, ends)]
+        return dict(zip(keys, self.counts.tolist()))
+
+    def restrict(self, alleles) -> "ClassLevel":
+        """The classes projected onto a set of allele indices: other
+        alleles dropped, emptied classes dropped, classes made equal
+        merged (the reference re-keys Gene_cmpt rows onto the expanded
+        set before the full-length EM, typing_core.py:1767-1780)."""
+        keep = np.zeros(self.M.shape[1], dtype=bool)
+        keep[self.names.rank[np.fromiter(alleles, np.int64)]] = True
+        M = self.M & keep
+        rows = M.any(axis=1)
+        return ClassLevel.merged(M[rows], self.counts[rows], self.names)

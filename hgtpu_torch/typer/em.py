@@ -1,6 +1,8 @@
-# Port of hgtpu/typer/em.py: the numpy solver is a copy, its two halves
-# under the TRACE stages em.build and em.solve; the dense device EM
-# (_em_dense, em_solve_dense) runs on torch.
+# Port of hgtpu/typer/em.py: the numpy solver's SQUAREM loop is a copy;
+# its input is built from class masks (class_abundance; the dict front
+# turns its keys into masks), its two halves under the TRACE stages
+# em.build and em.solve; the dense device EM (_em_dense, em_solve_dense)
+# runs on torch.
 """EM abundance solver with SQUAREM acceleration.
 
 Faithful port of the reference's single_abundance / next_prob / prob_diff
@@ -41,7 +43,8 @@ def _single_abundance_np(cmpt_counts: dict, remove_low: bool,
     """Vectorized float64 re-expression of the dict EM below: same
     initialization, SQUAREM step, pruning schedule, and tie ordering
     (allele first-appearance order; stable sort).  Differences are
-    limited to float summation order (<1e-15/step)."""
+    limited to float summation order (<1e-15/step).  The dict's classes
+    become masks over its alleles in first-appearance order."""
     with TRACE.stage("em.build"):
         alleles = []
         index = {}
@@ -57,10 +60,40 @@ def _single_abundance_np(cmpt_counts: dict, remove_low: bool,
                 rows.append(ci)
                 cols.append(i)
             counts.append(float(count))
-        A, C = len(alleles), len(counts)
-        M = np.zeros((C, A), dtype=np.float64)
-        M[rows, cols] = 1.0
-        cnt = np.asarray(counts)
+        M = np.zeros((len(counts), len(alleles)), dtype=bool)
+        M[rows, cols] = True
+        names = np.empty(len(alleles), dtype=object)
+        names[:] = alleles
+    return _abundance(M, counts, names, remove_low, lengths)
+
+
+def class_abundance(level, remove_low: bool = False, lengths: dict = None):
+    """single_abundance over a `counting.ClassLevel` (None for a level
+    not computed): the classes as masks, columns in name order, so the
+    solver's alleles come in the order the level's joined names would
+    give them."""
+    if not level:
+        return []
+    TRACE.count("em.stages.masks", 1)
+    return _abundance(level.M, level.counts, level.names.sorted_names,
+                      remove_low, lengths or {})
+
+
+def _abundance(M, counts, names, remove_low: bool, lengths: dict):
+    """The solver over classes as masks: M bool [C, K], counts [C],
+    names [K] the columns' allele names.  The alleles are the columns
+    some class holds, ordered by the first class holding each, then by
+    column."""
+    TRACE.count("em.stages", 1)
+    with TRACE.stage("em.build"):
+        first = M.argmax(axis=0)
+        held = np.flatnonzero(M.any(axis=0))
+        order = held[np.argsort(first[held], kind="stable")]
+        alleles = names[order].tolist()
+        # C order, as the products' summation order depends on it
+        M = M.take(order, axis=1).astype(np.float64)
+        cnt = np.asarray(counts, dtype=np.float64)
+        A = len(alleles)
         use_len = bool(lengths)
         inv_len = (np.array([1.0 / lengths[a] for a in alleles])
                    if use_len else None)

@@ -1022,16 +1022,14 @@ def type_gene(gene: GeneRef, read_alns, opts: TypingOptions = None,
     # Hierarchical abundance (ref: typing_core.py:1679-1789)
     # ------------------------------------------------------------------ #
     with TRACE.stage("type.em"):
-        with TRACE.stage("em.build"):
-            lengths = gene.allele_lengths()
-            full_cmpt = full_stats.cmpt_names()
-            exon_cmpt = exon_stats.cmpt_names()
-            primary_cmpt = primary_stats.cmpt_names()
+        from .staging import class_levels, staged_abundance
 
-        from .staging import staged_abundance
-        prob = staged_abundance(gene, opts, full_cmpt, exon_cmpt, primary_cmpt,
+        levels, (full_cmpt, exon_cmpt, primary_cmpt) = class_levels(
+            full_stats, exon_stats, primary_stats)
+        prob = staged_abundance(gene, opts, *levels,
                                 typer.allele_rep_groups,
-                                typer.primary_rep_groups, lengths)
+                                typer.primary_rep_groups,
+                                gene.allele_lengths())
 
     assembly_call = None
     contigs = None

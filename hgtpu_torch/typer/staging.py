@@ -1,5 +1,6 @@
-# Copy of hgtpu/typer/staging.py; the imports and restrict_cmpt's TRACE
-# stage differ.
+# Port of hgtpu/typer/staging.py: expansion_winners is a copy; the staged
+# EM takes each level's classes as masks (counting.ClassLevel) where
+# hgtpu takes {'A1-A2': count} dicts, and gives the same probabilities.
 """Hierarchical EM staging policy — the ONE home of the
 exon-representative -> group-expansion -> full-length abundance
 hierarchy (ref: hisatgenotype_typing_core.py:1679-1789).
@@ -10,7 +11,7 @@ selection rule exist exactly once (VERDICT r3 item 6):
 - the host engine (`typer/engine.type_gene`),
 - the device production path (`parallel/production`), which merges
   device class counts with host-rescued reads and then runs the same
-  staged EM on the merged cmpt dicts,
+  staged EM on the merged classes,
 - the pure-device sharded program (`parallel/e2e.ShardedTyper`), whose
   on-device EM consumes `expansion_winners` over its exon-stage
   abundance vector.
@@ -18,7 +19,7 @@ selection rule exist exactly once (VERDICT r3 item 6):
 from __future__ import annotations
 
 from ..utils.trace import TRACE
-from .em import single_abundance
+from .em import class_abundance
 
 # exon-stage winners are scanned in rank order; expansion stops at the
 # first allele past rank EXPANSION_TOP_RANK whose abundance falls below
@@ -54,26 +55,27 @@ def expansion_winners(ranked, rep_groups):
     return sel, prob_sum
 
 
-def restrict_cmpt(cmpt, alleles):
-    """Project a class-count dict onto an allele subset (the reference
-    re-keys Gene_cmpt rows onto the expanded set before the full-length
-    EM, typing_core.py:1767-1780)."""
-    out = {}
+def class_levels(*stats):
+    """Each StatAccumulator's classes (None for a level not computed)
+    and their {'A1-A2': count} dicts ({} for none), for the staged EM
+    and the result."""
     with TRACE.stage("em.build"):
-        for cls, value in cmpt.items():
-            kept = [a for a in cls.split("-") if a in alleles]
-            if kept:
-                k = "-".join(kept)
-                out[k] = out.get(k, 0) + value
-    return out
+        levels = [None if st is None else st.classes() for st in stats]
+        return levels, [{} if lv is None else lv.cmpt() for lv in levels]
 
 
-def staged_abundance(gene, opts, full_cmpt, exon_cmpt, primary_cmpt,
+def _restrict(level, alleles):
+    with TRACE.stage("em.build"):
+        return level and level.restrict(alleles)
+
+
+def staged_abundance(gene, opts, full, exon, primary,
                      rep_groups, primary_rep_groups, lengths):
-    """Full hierarchical abundance over the three cmpt levels.
+    """Full hierarchical abundance over the three class levels.
 
-    gene: GeneRef; opts: TypingOptions; *_cmpt: {'A1-A2': count} class
-    dicts at full / exon / primary-exon projection levels; *_rep_groups:
+    gene: GeneRef; opts: TypingOptions; full, exon, primary: the
+    classes (`counting.ClassLevel`, or None for a level not computed)
+    at full / exon / primary-exon projection levels; *_rep_groups:
     {rep allele index: [member indices]}.  Returns [[allele, prob], ...]
     descending — exactly the reference's hierarchy: (optional)
     primary-exon stage, exon-representative stage, expansion of winning
@@ -81,29 +83,29 @@ def staged_abundance(gene, opts, full_cmpt, exon_cmpt, primary_cmpt,
     expanded set (typing_core.py:1679-1789).
     """
     if opts.family != "hla":
-        if len(full_cmpt) <= 1:
-            return [[list(full_cmpt.keys())[0], 1.0]] if full_cmpt else []
-        return single_abundance(full_cmpt)
+        if len(full) <= 1:
+            return [[next(iter(full.cmpt())), 1.0]] if full else []
+        return class_abundance(full)
 
-    name2idx = {n: i for i, n in enumerate(gene.allele_names)}
+    name2idx = full.names.index
 
-    if opts.type_primary_exons and primary_cmpt:
+    if opts.type_primary_exons and primary:
         # stage 0 (ref: the type_primary_exons branch,
         # typing_core.py:1684-1730): primary-exon reps first, then
         # expand winning groups into the exon-level EM
-        primary_prob = single_abundance(primary_cmpt)
-        px_alleles = set()
+        primary_prob = class_abundance(primary)
+        px = set()
         px_sum = 0.0
         for allele, prob in primary_prob:
             group = primary_rep_groups.get(name2idx[allele], [])
             if len(group) <= 1:
                 continue
             px_sum += prob
-            px_alleles |= {gene.allele_names[i] for i in group}
-        if px_alleles:
-            sub = single_abundance(
-                restrict_cmpt(exon_cmpt, px_alleles),
-                opts.remove_low_abundance_alleles)
+            px.update(group)
+        if px:
+            sub = class_abundance(_restrict(exon, px),
+                                  opts.remove_low_abundance_alleles)
+            px_alleles = {gene.allele_names[i] for i in px}
             merged = {a: p for a, p in primary_prob
                       if a not in px_alleles}
             for a, p in sub:
@@ -113,20 +115,20 @@ def staged_abundance(gene, opts, full_cmpt, exon_cmpt, primary_cmpt,
         else:
             exon_prob = primary_prob
     else:
-        exon_prob = single_abundance(exon_cmpt,
-                                     opts.remove_low_abundance_alleles)
+        exon_prob = class_abundance(exon,
+                                    opts.remove_low_abundance_alleles)
 
     sel, exon_prob_sum = expansion_winners(
         ((name2idx[a], p) for a, p in exon_prob), rep_groups)
-    exon_alleles = {gene.allele_names[i] for i in sel}
 
-    if exon_alleles:
+    if sel:
         # full-length stage always prunes in the reference
         # (typing_core.py:1767-1769) — unless the user kept low-
         # abundance alleles explicitly
-        full_prob = single_abundance(
-            restrict_cmpt(full_cmpt, exon_alleles),
-            opts.remove_low_abundance_alleles, lengths)
+        full_prob = class_abundance(
+            _restrict(full, sel), opts.remove_low_abundance_alleles,
+            lengths)
+        exon_alleles = {gene.allele_names[i] for i in sel}
         combined = {a: p for a, p in exon_prob if a not in exon_alleles}
         for a, p in full_prob:
             combined[a] = p * exon_prob_sum

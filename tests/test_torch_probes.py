@@ -49,8 +49,10 @@ def assert_contract(got, want):
         assert abs(p - q) < 1e-9
 
 
-# the verify prep's bounded entries, and those bounded on the card
-PORT_ONLY_COUNTERS = {"verify.lb.entries", "verify.lb.card"}
+# the verify prep's bounded entries, and those bounded on the card; the
+# staged EM's solver stages, and those fed the classes as masks
+PORT_ONLY_COUNTERS = {"verify.lb.entries", "verify.lb.card",
+                      "em.stages", "em.stages.masks"}
 
 
 @pytest.mark.parametrize("path", ["host", "production"])

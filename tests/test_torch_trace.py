@@ -387,6 +387,22 @@ def test_benchmark_reader_of_the_bound_on_the_card(sample):
     assert window(card_run) == 100.0
 
 
+def test_benchmark_reader_of_the_mask_fed_em_stages(sample):
+    """em_mask_stage_pct: 100 * em.stages.masks / em.stages over the
+    window's calls: None where no call ran a solver stage (as at a
+    program without the counters), 100 over a typing call."""
+    reader = load(os.path.join(BENCH, "layer_metrics",
+                               "em_mask_stage_pct.py"),
+                  "bench_metric_em_mask_stage_pct")
+    t = time.perf_counter()
+    assert reader.read(dict(window=(t, t), samples=1, spans=[])) is None
+    t0 = time.perf_counter()
+    _res, call = type_once(sample)
+    assert call["counters"]["em.stages"] >= 1
+    assert reader.read(dict(window=(t0, time.perf_counter()), samples=1,
+                            spans=[])) == 100.0
+
+
 def test_benchmark_reader_of_the_pass_graph_hit_share(sample, monkeypatch):
     """pass_graph_hit_pct: 100 (1 - captures / dispatches) over the
     window's calls, with a stub capturer standing in for CUDA graphs on
